@@ -1,0 +1,96 @@
+"""Low-order P1 finite-element matrices on structured node grids.
+
+Port of the JAX package's ``amg/fem.py`` (host numpy/scipy setup): each
+hex cell between adjacent grid nodes becomes 6 Kuhn tetrahedra with
+per-simplex P1 stiffness. Only the numpy assembly is ported; the native
+C++ binding waits for the fem-amg slice (the vertex grid is small).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+
+from ..utils.gll import gll_points_weights, lagrange_eval
+
+__all__ = ["p1_stiffness_grid", "grid_interp_1d"]
+
+# Kuhn triangulation of the unit cube: for each permutation pi of the axes,
+# the tet 0 -> e_{pi0} -> e_{pi0}+e_{pi1} -> (1,1,1). Corners as (cz, cy, cx).
+_KUHN_PERMS = [(0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0)]
+
+
+def _kuhn_tets():
+    tets = []
+    for perm in _KUHN_PERMS:
+        corners = [(0, 0, 0)]
+        acc = [0, 0, 0]
+        for ax in perm:
+            acc[ax] = 1
+            corners.append(tuple(acc))
+        tets.append(corners)
+    return tets
+
+
+def _simplex_stiffness(verts):
+    """P1 stiffness matrices (B, d+1, d+1) for simplices verts (B, d+1, d):
+    K[a,b] = |T| grad(lambda_a) . grad(lambda_b)."""
+    d = verts.shape[-1]
+    M = verts[:, 1:, :] - verts[:, :1, :]
+    det = np.linalg.det(M)
+    vol = np.abs(det) / (2.0 if d == 2 else 6.0)
+    Minv = np.linalg.inv(M)
+    grads = np.empty((verts.shape[0], d + 1, d))
+    grads[:, 1:, :] = np.swapaxes(Minv, 1, 2)
+    grads[:, 0, :] = -grads[:, 1:, :].sum(axis=1)
+    return np.einsum("bad,bcd->bac", grads, grads) * vol[:, None, None]
+
+
+def p1_stiffness_grid(X: np.ndarray) -> sp.csr_matrix:
+    """P1 stiffness matrix on a structured 3-D node grid X (nz, ny, nx, 3),
+    CSR over C-order raveled node indices, no boundary conditions."""
+    X = np.asarray(X, dtype=np.float64)
+    if X.shape[-1] != 3:
+        raise NotImplementedError("the port's FEM grids are 3-D")
+    grid = X.shape[:-1]
+    n = int(np.prod(grid))
+    nid = np.arange(n, dtype=np.int64).reshape(grid)
+    nz, ny, nx = grid
+    cz, cy, cx = nz - 1, ny - 1, nx - 1
+    rows, cols, vals = [], [], []
+    for corners in _kuhn_tets():
+        verts = np.stack([X[z:z + cz, y:y + cy, x:x + cx].reshape(-1, 3)
+                          for z, y, x in corners], axis=1)     # (B, 4, 3)
+        ids = np.stack([nid[z:z + cz, y:y + cy, x:x + cx].reshape(-1)
+                        for z, y, x in corners], axis=1)       # (B, 4)
+        K = _simplex_stiffness(verts)
+        m = ids.shape[1]
+        rows.append(np.repeat(ids, m, axis=1).ravel())
+        cols.append(np.tile(ids, (1, m)).ravel())
+        vals.append(np.swapaxes(K, 1, 2).ravel())
+    A = sp.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def grid_interp_1d(m: int, o_from: int, o_to: int) -> sp.csr_matrix:
+    """1-D interpolation between multi-element GLL grids on [0, 1]: nodal
+    values on m elements of order ``o_from`` (m*o_from + 1 shared nodes) to
+    the same elements at order ``o_to``; shared rows written once."""
+    n_from, n_to = m * o_from + 1, m * o_to + 1
+    rf, _ = gll_points_weights(o_from + 1)
+    rt, _ = gll_points_weights(o_to + 1)
+    L = lagrange_eval(rf, rt)               # (o_to+1, o_from+1)
+    rows, cols, vals = [], [], []
+    for e in range(m):
+        r0, c0 = e * o_to, e * o_from
+        rr, cc = np.nonzero(np.abs(L) > 1e-15)
+        keep = (rr > 0) | (e == 0)          # write shared row once
+        rows.append(r0 + rr[keep])
+        cols.append(c0 + cc[keep])
+        vals.append(L[rr[keep], cc[keep]])
+    return sp.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n_to, n_from)).tocsr()

@@ -1,0 +1,101 @@
+"""Chebyshev smoothing and the vertex-grid stencil V-cycle.
+
+Port of the JAX package's ``amg/vcycle.py`` pieces on the main path:
+``cheby_smooth`` (diagonal-preconditioned Chebyshev on [0.3*lmax, lmax],
+hypre relax_type=16 semantics), ``pack_chain`` and ``chain_vcycle`` (a
+V(1,1) cycle on the 27-point stencil chain with dense per-axis transfers
+and a dense coarsest inverse). Fields may be tensors or lists of tensors
+(the composite problem keeps per-group lattices).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.interp import axis_contract
+from ..ops.stencil import stencil_apply, stencil_from_csr
+
+__all__ = ["CHEBY_FRACTION", "cheby_smooth", "pack_chain", "chain_vcycle"]
+
+CHEBY_FRACTION = 0.3   # hypre's cheby_fraction default (relax_type=16)
+
+
+def _tmap(fn, *xs):
+    """Map over a field: a tensor, or a list of per-group tensors."""
+    if isinstance(xs[0], (list, tuple)):
+        return [fn(*parts) for parts in zip(*xs)]
+    return fn(*xs)
+
+
+def cheby_smooth(A, invd, lmax, f, u, order: int):
+    """Chebyshev smoothing on [CHEBY_FRACTION*lmax, lmax]: A is a callable
+    x -> A x; ``lmax`` a 0-d tensor (its dtype sets the scalars')."""
+    lmin = CHEBY_FRACTION * lmax
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    r = f if u is None else _tmap(torch.sub, f, A(u))
+    d = _tmap(lambda iv, rl: iv * rl / theta, invd, r)
+    u = d if u is None else _tmap(torch.add, u, d)
+    for _ in range(order - 1):
+        r = _tmap(torch.sub, r, A(d))
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = _tmap(lambda dl, iv, rl: rho_new * rho * dl
+                  + (2.0 * rho_new / delta) * (iv * rl), d, invd, r)
+        rho = rho_new
+        u = _tmap(torch.add, u, d)
+    return u
+
+
+def pack_chain(info: dict, dtype=torch.float32, device=None) -> dict:
+    """Device tensors for a tensor-grid chain (amg/composite.
+    coarsen_chain_info output): level matrices in stencil form, transfers
+    as per-axis dense factors."""
+    nlev = len(info["mats"])
+    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    levels = []
+    for l in range(nlev):
+        A = info["mats"][l]
+        d = A.diagonal()
+        levels.append({
+            "coefs": stencil_from_csr(A, info["shapes"][l], dtype=dtype,
+                                      device=device),
+            "invd": as_t(np.where(d > 0, 1.0 / d, 0.0)),
+            "lmax": as_t(info["lmaxs"][l] if l < nlev - 1 else 1.0),
+        })
+    return {
+        "levels": levels,
+        "factors": [[as_t(F) for F in Fs] for Fs in info["factors"]],
+        "masks": [as_t(m) for m in info["masks"]],
+        "coarse_inv": as_t(info["coarse_inv"]),
+    }
+
+
+def chain_vcycle(chain: dict, f, *, cheby_order: int = 2):
+    """V(1,1) cycle on a pack_chain chain (stencil applies and dense
+    per-axis contractions); f is flat over the finest vertex grid."""
+    levels = chain["levels"]
+    dim = levels[0]["coefs"].dim() - 1
+    nlev = len(levels)
+
+    def transfer(l, v, down: bool):
+        """down: restrict level l -> l+1; up: prolong level l+1 -> l."""
+        Fs = chain["factors"][l]
+        V = v.reshape(levels[l if down else l + 1]["coefs"].shape[1:])
+        for ax, F in enumerate(Fs):
+            V = axis_contract(F.T if down else F, V, ax)
+        return V.reshape(-1) * chain["masks"][l + 1 if down else l]
+
+    def cycle(l, fl):
+        if l == nlev - 1:
+            return chain["coarse_inv"] @ fl
+        lv = levels[l]
+        A = lambda x: stencil_apply(lv["coefs"], x, dim)
+        u = cheby_smooth(A, lv["invd"], lv["lmax"], fl, None, cheby_order)
+        fc = transfer(l, fl - A(u), down=True)
+        u = u + transfer(l, cycle(l + 1, fc), down=False)
+        return cheby_smooth(A, lv["invd"], lv["lmax"], fl, u, cheby_order)
+
+    return cycle(0, f)

@@ -1,0 +1,319 @@
+"""Structured spectral-element mesh generation (box and Kershaw meshes).
+
+Port of the JAX package's ``mesh/generator.py`` for 3-D meshes (the
+unstructured ``scramble_mesh`` belongs to a later slice). Node numbering,
+Dirichlet mask and multiplicities are host numpy, as there; the geometric
+factors run in torch float64 on the device the mesh is built for (the
+H100 has native f64), with the arithmetic of the reference's numpy form
+``_geometric_factors_np``.
+
+Local intra-element ordering: arrays are stored (..., n_z, n_y, n_x) so
+that raveling gives ``v = i + j*n + k*n^2`` with the x-index fastest.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..utils.gll import gll_points_weights, diff_matrix
+
+__all__ = ["GlobalMesh", "box_mesh", "kershaw_mesh", "geometric_factors"]
+
+
+@dataclass
+class GlobalMesh:
+    """A complete spectral-element mesh, all elements, host numpy arrays.
+
+    Per-element arrays use local ordering v = i + j*n + k*n^2, x fastest.
+    ``geom`` holds [G_rr, G_ss, G_tt, G_rs, G_rt, G_st] with GLL weights
+    and |J| folded in, as consumed by the stiffness kernel.
+    """
+
+    dim: int
+    poly_degree: int
+    elem_shape: tuple[int, ...]       # elements per dimension (mx, my, mz)
+    coords: np.ndarray                # (E, npe, dim) nodal coordinates
+    glo_num: np.ndarray               # (E, npe) int64 global node ids
+    node_degree: np.ndarray           # (E, npe) int32 global multiplicity
+    dirichlet_mask: np.ndarray        # (E, npe) float, 0.0 on the boundary
+    geom: np.ndarray                  # (E, npe, 6) geometric factors
+    mass: np.ndarray | None = None    # (E, npe) diagonal GLL mass w * |J|
+    structured_layout: bool = True    # elements stored in slab order
+
+    @property
+    def num_elements(self) -> int:
+        return self.coords.shape[0]
+
+    @property
+    def num_points_per_elem(self) -> int:
+        return self.coords.shape[1]
+
+    @property
+    def num_points(self) -> int:
+        return self.coords.shape[0] * self.coords.shape[1]
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.glo_num.max()) + 1
+
+    @property
+    def num_geom(self) -> int:
+        return self.geom.shape[-1]
+
+    @classmethod
+    def from_numpy(cls, *, coords, geom, dirichlet_mask, node_degree,
+                   elem_shape, poly_degree, mass=None) -> "GlobalMesh":
+        """A mesh from host arrays of the same names and layout — e.g. the
+        JAX package's ``GlobalMesh`` fields — so both packages can be fed
+        the identical problem. The global numbering is rebuilt from
+        ``elem_shape`` and ``poly_degree`` (structured slab order)."""
+        elem_shape = tuple(int(m) for m in elem_shape)
+        _, glo_num, _ = _reference_coords(elem_shape, int(poly_degree))
+        coords = np.asarray(coords, dtype=np.float64)
+        E, npe = coords.shape[:2]
+        return cls(
+            dim=len(elem_shape),
+            poly_degree=int(poly_degree),
+            elem_shape=elem_shape,
+            coords=coords,
+            glo_num=glo_num.reshape(E, npe),
+            node_degree=np.asarray(node_degree, dtype=np.int32),
+            dirichlet_mask=np.asarray(dirichlet_mask, dtype=np.float64),
+            geom=np.asarray(geom, dtype=np.float64),
+            mass=None if mass is None else np.asarray(mass, np.float64),
+        )
+
+
+def _reference_coords(elem_shape, poly_degree):
+    """Unit-box nodal coordinates and global numbering for a structured mesh.
+
+    Returns (coords_axes, glo_num, gdims): coords_axes is a list of per-dim
+    (E, n_z, n_y, n_x)-shaped nodal coordinates in [0, 1].
+    """
+    dim = len(elem_shape)
+    n = poly_degree + 1
+    r, _ = gll_points_weights(n)
+    t = (r + 1.0) / 2.0  # GLL nodes mapped to [0, 1]
+
+    axes_1d = [(np.arange(m)[:, None] + t[None, :]) / m for m in elem_shape]
+    # per-dimension global 1-D node index (shared at element interfaces)
+    gidx_1d = [np.arange(m)[:, None] * poly_degree + np.arange(n)[None, :]
+               for m in elem_shape]
+    gdims = [m * poly_degree + 1 for m in elem_shape]
+
+    # element ordering: x fastest (e = ex + ey*mx + ez*mx*my)
+    rev = np.indices(tuple(reversed(elem_shape)))
+    elem_multi = [rev[dim - 1 - d].reshape(-1) for d in range(dim)]
+
+    E = int(np.prod(elem_shape))
+    shape_local = (n,) * dim  # (n_z, n_y, n_x) storage order
+    coords_axes = [np.empty((E,) + shape_local) for _ in range(dim)]
+    glo_num = np.empty((E,) + shape_local, dtype=np.int64)
+    for d in range(dim):
+        shp = [1] * dim
+        shp[dim - 1 - d] = n
+        coords_axes[d][:] = axes_1d[d][elem_multi[d]].reshape((E,) + tuple(shp))
+
+    g_parts = []
+    stride = 1
+    for d in range(dim):
+        gi = gidx_1d[d][elem_multi[d]]  # (E, n) global 1-D index along dim d
+        shp = [1] * dim
+        shp[dim - 1 - d] = n
+        g_parts.append(gi.reshape((E,) + tuple(shp)) * stride)
+        stride *= gdims[d]
+    glo_num[:] = sum(g_parts)
+    return coords_axes, glo_num, gdims
+
+
+def _kershaw_right(eps, x):
+    return np.where(x <= 0.5, (2.0 - eps) * x, 1.0 + eps * (x - 1.0))
+
+
+def _kershaw_left(eps, x):
+    return 1.0 - _kershaw_right(eps, 1.0 - x)
+
+
+def _kershaw_step(a, b, x):
+    x = np.clip(x, 0.0, 1.0)
+    s = x * x * x * (x * (6.0 * x - 15.0) + 10.0)  # smootherstep
+    return a + (b - a) * s
+
+
+def kershaw_transform(eps_y, eps_z, x, y, z=None):
+    """The standard 6-layer Kershaw warp of the unit box (the public
+    CEED/MFEM definition)."""
+    layer = np.minimum((x * 6.0).astype(np.int64), 5)
+    lam = x * 6.0 - layer
+
+    def warp(eps, c):
+        lo, hi = _kershaw_left(eps, c), _kershaw_right(eps, c)
+        out = np.where(layer == 0, lo, 0.0)
+        out = np.where((layer == 1) | (layer == 4), _kershaw_step(lo, hi, lam), out)
+        out = np.where(layer == 2, _kershaw_step(hi, lo, lam / 2.0), out)
+        out = np.where(layer == 3, _kershaw_step(hi, lo, (1.0 + lam) / 2.0), out)
+        out = np.where(layer == 5, hi, out)
+        return out
+
+    Y = warp(eps_y, y)
+    Z = warp(eps_z, z) if z is not None else None
+    return x, Y, Z
+
+
+_CHUNK_ELEMS = 8192   # elements per device pass of geometric_factors
+
+
+def geometric_factors(coords: np.ndarray, dim: int, poly_degree: int,
+                      device=None):
+    """SEM geometric factors G = w |J| (J^{-1} J^{-T}) in torch float64.
+
+    ``coords`` is (E, npe, 3). Returns host numpy ``(geom, mass)``: geom
+    (E, npe, 6) ordered [G_rr, G_ss, G_tt, G_rs, G_rt, G_st], mass the
+    (E, npe) lumped mass w |J|. Runs on ``device`` (None: the card),
+    chunked over elements, with the operation order of the reference's
+    numpy form (closed-form adjugate inverse).
+    """
+    if dim != 3:
+        raise NotImplementedError("the port's meshes are 3-D")
+    device = resolve_device(device)
+    n = poly_degree + 1
+    E = coords.shape[0]
+    f64 = torch.float64
+    Dt = torch.as_tensor(diff_matrix(n).T, dtype=f64, device=device)
+    _, w = gll_points_weights(n)
+    wq = np.multiply.outer(w, np.multiply.outer(w, w))  # (n_z, n_y, n_x)
+    wq = torch.as_tensor(wq, dtype=f64, device=device)
+    pairs = [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]
+    X_all = np.asarray(coords, dtype=np.float64).reshape(E, n, n, n, dim)
+    g_out = np.empty((E, n ** 3, 6))
+    m_out = np.empty((E, n ** 3))
+    for s in range(0, E, _CHUNK_ELEMS):
+        e = min(s + _CHUNK_ELEMS, E)
+        X = torch.as_tensor(X_all[s:e], device=device)
+        # J[..., d, a] = d x_d / d r_a; r_a along storage axis 3 - a
+        J = torch.stack([torch.movedim(torch.tensordot(X, Dt, dims=([3 - a], [0])),
+                                       -1, 3 - a)
+                         for a in range(3)], dim=-1)
+        c00 = J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1]
+        c01 = J[..., 1, 2] * J[..., 2, 0] - J[..., 1, 0] * J[..., 2, 2]
+        c02 = J[..., 1, 0] * J[..., 2, 1] - J[..., 1, 1] * J[..., 2, 0]
+        detJ = J[..., 0, 0] * c00 + J[..., 0, 1] * c01 + J[..., 0, 2] * c02
+        r0 = torch.stack([
+            c00,
+            J[..., 0, 2] * J[..., 2, 1] - J[..., 0, 1] * J[..., 2, 2],
+            J[..., 0, 1] * J[..., 1, 2] - J[..., 0, 2] * J[..., 1, 1]], -1)
+        r1 = torch.stack([
+            c01,
+            J[..., 0, 0] * J[..., 2, 2] - J[..., 0, 2] * J[..., 2, 0],
+            J[..., 0, 2] * J[..., 1, 0] - J[..., 0, 0] * J[..., 1, 2]], -1)
+        r2 = torch.stack([
+            c02,
+            J[..., 0, 1] * J[..., 2, 0] - J[..., 0, 0] * J[..., 2, 1],
+            J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]], -1)
+        Jinv = torch.stack([r0, r1, r2], dim=-2) / detJ[..., None, None]
+        Gfull = torch.einsum("...ad,...bd->...ab", Jinv, Jinv) \
+            * detJ[..., None, None]
+        Gfull = Gfull * wq[None, ..., None, None]
+        g = torch.stack([Gfull[..., a, b] for a, b in pairs], dim=-1)
+        mass = wq[None] * detJ
+        g_out[s:e] = g.reshape(e - s, n ** 3, 6).cpu().numpy()
+        m_out[s:e] = mass.reshape(e - s, n ** 3).cpu().numpy()
+    return g_out, m_out
+
+
+def _trilinear_nodes(elem_shape, poly_degree, vertex_transform):
+    """Nodal coordinates for a vertex-warped mesh: the warp moves element
+    vertices only; interior GLL nodes are placed by trilinear blending,
+    so every element is a trilinear hex."""
+    dim = len(elem_shape)
+    n = poly_degree + 1
+    r, _ = gll_points_weights(n)
+    t = (r + 1.0) / 2.0
+    blend = np.stack([1.0 - t, t], axis=0)  # (2, n)
+
+    grids = np.meshgrid(*[np.arange(m + 1) / m for m in elem_shape],
+                        indexing="ij")
+    wx, wy, wz = vertex_transform(*grids)
+    verts = np.stack([wx, wy, wz], axis=-1)
+
+    rev = np.indices(tuple(reversed(elem_shape)))
+    emulti = [rev[dim - 1 - d].reshape(-1) for d in range(dim)]
+    E = int(np.prod(elem_shape))
+    corners = np.empty((E,) + (2,) * dim + (dim,))
+    for c in np.ndindex(*(2,) * dim):
+        sel = tuple(emulti[d] + c[d] for d in range(dim))
+        corners[(slice(None),) + c] = verts[sel]
+
+    # contract the corner axes (x, y, z) with the blend; the appended node
+    # axes come out (E, dim, n_x, n_y, n_z) -> storage (E, n_z, n_y, n_x, dim)
+    out = corners
+    for _ in range(dim):
+        out = np.tensordot(out, blend, axes=([1], [0]))
+    out = np.transpose(out, (0, 4, 3, 2, 1))
+    return out.reshape(E, n ** dim, dim)
+
+
+def _build(elem_shape, poly_degree, transform=None, vertex_transform=None,
+           device=None) -> GlobalMesh:
+    dim = len(elem_shape)
+    if dim != 3:
+        raise NotImplementedError("the port's meshes are 3-D")
+    npe = (poly_degree + 1) ** dim
+    coords_axes, glo_num, gdims = _reference_coords(elem_shape, poly_degree)
+    E = glo_num.shape[0]
+
+    if transform is not None:
+        coords_axes = transform(coords_axes)
+    if vertex_transform is not None:
+        coords = _trilinear_nodes(elem_shape, poly_degree, vertex_transform)
+    else:
+        coords = np.stack([c.reshape(E, npe) for c in coords_axes], axis=-1)
+    glo_flat = glo_num.reshape(E, npe)
+
+    degree_global = np.bincount(glo_flat.ravel(),
+                                minlength=int(glo_flat.max()) + 1)
+    node_degree = degree_global[glo_flat].astype(np.int32)
+
+    # Dirichlet on the whole outer boundary (0 on boundary nodes)
+    gids = glo_flat.copy()
+    mask = np.ones((E, npe))
+    for d in range(dim):
+        gi = gids % gdims[d]
+        mask *= (gi != 0) & (gi != gdims[d] - 1)
+        gids //= gdims[d]
+
+    geom, mass = geometric_factors(coords, dim, poly_degree, device=device)
+    return GlobalMesh(dim=dim, poly_degree=poly_degree,
+                      elem_shape=tuple(elem_shape), coords=coords,
+                      glo_num=glo_flat, node_degree=node_degree,
+                      dirichlet_mask=mask, geom=geom, mass=mass)
+
+
+def box_mesh(elem_shape, poly_degree, extent=None, device=None) -> GlobalMesh:
+    """Uniform box mesh of [0,e_0] x [0,e_1] x [0,e_2] (the unit cube when
+    ``extent`` is None)."""
+    elem_shape = tuple(elem_shape)
+    if extent is None:
+        return _build(elem_shape, poly_degree, device=device)
+    extent = tuple(extent)
+
+    def transform(axes):
+        return [a * e for a, e in zip(axes, extent)]
+
+    return _build(elem_shape, poly_degree, transform=transform, device=device)
+
+
+def kershaw_mesh(elem_shape, poly_degree, epsilon=0.3,
+                 device=None) -> GlobalMesh:
+    """Kershaw-warped unit-cube mesh: epsilon=1.0 gives the uniform box,
+    smaller epsilon a higher distortion. The geometric factors are
+    computed on ``device``."""
+    def vtransform(x, y, z):
+        return kershaw_transform(epsilon, epsilon, x, y, z)
+
+    return _build(tuple(elem_shape), poly_degree,
+                  vertex_transform=vtransform, device=device)

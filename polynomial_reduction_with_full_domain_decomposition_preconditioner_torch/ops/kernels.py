@@ -1,0 +1,201 @@
+"""The port's hand-written Hopper kernels, their plain twins and counts.
+
+Each kernel keeps the JAX name of the Pallas TPU kernel it replaces
+(``..._tpu/ops/pallas_kernels.py``) and has a plain PyTorch twin,
+``*_plain``, with the same arithmetic. Dispatch: a CPU tensor goes to the
+plain twin; a CUDA tensor goes to the kernel (csrc/*.cu, built on first
+use by ops/cuda_lib.py) or raises — there is no fallback.
+
+Every wrapper counts its kernel launches per I/O dtype in ``.launches``;
+each plain twin counts its calls in ``.calls``, so a run on the card can
+show that it went through the kernels and never through a plain twin.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..utils.gll import diff_matrix
+from . import cuda_lib
+from .gather_scatter import lattice_face_sum
+from .sem import dmul
+
+__all__ = ["stiffness_lattice_3d", "stiffness_lattice_3d_plain",
+           "lattice_face_sum_3d", "lattice_face_sum_3d_plain",
+           "LaunchCount", "reset_counts", "counts"]
+
+_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
+
+
+class LaunchCount:
+    """Launches (or calls) of one function, per I/O dtype name."""
+
+    def __init__(self):
+        self.by_dtype: dict[str, int] = {}
+
+    def add(self, dtype) -> None:
+        key = str(dtype).replace("torch.", "")
+        self.by_dtype[key] = self.by_dtype.get(key, 0) + 1
+
+    def reset(self) -> None:
+        self.by_dtype.clear()
+
+
+def _acc_dtype(dtype):
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+@functools.lru_cache(maxsize=None)
+def _diff(n: int, dtype, device) -> torch.Tensor:
+    """GLL differentiation matrix of order n-1 from the host f64 table."""
+    return torch.as_tensor(diff_matrix(n), dtype=dtype, device=device)
+
+
+def _check_lattice(name, U, n, others):
+    if U.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {U.device} have no kernel")
+    if U.dim() != 3:
+        raise ValueError(f"{name}: need a 3-D (Mz, My, Mx) lattice, got {tuple(U.shape)}")
+    if U.dtype not in _CODE:
+        raise TypeError(f"{name}: unsupported dtype {U.dtype}")
+    if any(m % n for m in U.shape):
+        raise ValueError(f"{name}: lattice {tuple(U.shape)} is not element-aligned for n={n}")
+    for o in others:
+        if o.shape != U.shape or o.device != U.device or not o.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous lattices "
+                             f"of shape {tuple(U.shape)} on {U.device}")
+    if not U.is_contiguous():
+        raise ValueError(f"{name}: the input lattice must be contiguous")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error code {err}")
+
+
+# ---------------------------------------------------------------------------
+# K1: fused SEM stiffness apply (replaces pallas_kernels.stiffness_lattice_3d)
+
+
+def stiffness_lattice_3d_plain(U, G, n: int):
+    """Au = sum_a D_a^T sum_b G_ab D_b u, element by element, accumulated
+    in f32 (f64 for f64 I/O) with D from the f64 GLL table; one cast to
+    the I/O dtype at the end, as the kernel does."""
+    stiffness_lattice_3d_plain.calls.add(U.dtype)
+    acc = _acc_dtype(U.dtype)
+    D = _diff(n, acc, U.device)
+    Dt = D.T
+    Uc = U.to(acc)
+    G0, G1, G2, G3, G4, G5 = (g.to(acc) for g in G)
+    Dr = dmul(D, Uc, 2, n)
+    Ds = dmul(D, Uc, 1, n)
+    Dt_ = dmul(D, Uc, 0, n)
+    Wr = G0 * Dr + G3 * Ds + G4 * Dt_
+    Ws = G3 * Dr + G1 * Ds + G5 * Dt_
+    Wt = G4 * Dr + G5 * Ds + G2 * Dt_
+    out = dmul(Dt, Wr, 2, n) + dmul(Dt, Ws, 1, n) + dmul(Dt, Wt, 0, n)
+    return out.to(U.dtype)
+
+
+def stiffness_lattice_3d(U, G, n: int):
+    """One-pass fused SEM stiffness apply on a (Mz, My, Mx) lattice with
+    the six factor lattices G (G_rr, G_ss, G_tt, G_rs, G_rt, G_st), all
+    of U's dtype (bf16, f32 or f64); any element-aligned shape, n = 2..8.
+    """
+    if U.device.type == "cpu":
+        return stiffness_lattice_3d_plain(U, G, n)
+    if len(G) != 6:
+        raise ValueError("stiffness_lattice_3d: need 6 geometric factor lattices")
+    _check_lattice("stiffness_lattice_3d", U, n, G)
+    if any(g.dtype != U.dtype for g in G):
+        raise TypeError("stiffness_lattice_3d: factors must have U's dtype")
+    if not 2 <= n <= 8:
+        raise ValueError(f"stiffness_lattice_3d: n={n} outside 2..8")
+    mz, my, mx = U.shape
+    if my // n > 65535 or mz // n > 65535:
+        raise ValueError("stiffness_lattice_3d: lattice exceeds the launch grid")
+    out = torch.empty_like(U)
+    D = _diff(n, _acc_dtype(U.dtype), U.device)
+    with torch.cuda.device(U.device):
+        stream = torch.cuda.current_stream(U.device).cuda_stream
+        err = cuda_lib.load().prfdd_stiffness_3d(
+            _CODE[U.dtype], n, U.data_ptr(), *(g.data_ptr() for g in G),
+            D.data_ptr(), out.data_ptr(), mz, my, mx, stream)
+    _raise_on(err, "stiffness_lattice_3d")
+    stiffness_lattice_3d.launches.add(U.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: one-pass face sum (replaces pallas_kernels.lattice_face_sum_3d)
+
+
+def lattice_face_sum_3d_plain(U, n: int, mask=None, weight=None):
+    """The roll form with axes (2, 1, 0) in f32 (f64 for f64 I/O), then
+    x weight, then x mask, then one cast to U's dtype — the kernel's
+    exact arithmetic, so f32/f64/bf16 results are bitwise equal."""
+    lattice_face_sum_3d_plain.calls.add(U.dtype)
+    acc = _acc_dtype(U.dtype)
+    R = lattice_face_sum(U.to(acc), n, axes=(2, 1, 0))
+    if weight is not None:
+        R = R * weight.to(acc)
+    if mask is not None:
+        R = R * mask.to(acc)
+    return R.to(U.dtype)
+
+
+def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
+    """One-pass fused face summation on a (Mz, My, Mx) lattice, with the
+    optional same-shape ``weight`` and ``mask`` multiplied in before the
+    single output cast. mask and weight share one dtype, which may differ
+    from U's (an f32 field carries a bf16 mask and weight)."""
+    if U.device.type == "cpu":
+        return lattice_face_sum_3d_plain(U, n, mask=mask, weight=weight)
+    mw = [t for t in (mask, weight) if t is not None]
+    _check_lattice("lattice_face_sum_3d", U, n, mw)
+    if len({t.dtype for t in mw}) > 1 or any(t.dtype not in _CODE for t in mw):
+        raise TypeError("lattice_face_sum_3d: mask and weight need one "
+                        "dtype among bf16, f32, f64")
+    out = torch.empty_like(U)
+    if U.numel() == 0:
+        return out
+    mz, my, mx = U.shape
+    if my > 65535 or mz > 65535:
+        raise ValueError("lattice_face_sum_3d: lattice exceeds the launch grid")
+    mw_code = _CODE[mw[0].dtype] if mw else _CODE[U.dtype]
+    with torch.cuda.device(U.device):
+        stream = torch.cuda.current_stream(U.device).cuda_stream
+        err = cuda_lib.load().prfdd_face_sum_3d(
+            _CODE[U.dtype], mw_code, n, U.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            None if weight is None else weight.data_ptr(),
+            out.data_ptr(), mz, my, mx, stream)
+    _raise_on(err, "lattice_face_sum_3d")
+    lattice_face_sum_3d.launches.add(U.dtype)
+    return out
+
+
+stiffness_lattice_3d.launches = LaunchCount()
+lattice_face_sum_3d.launches = LaunchCount()
+stiffness_lattice_3d_plain.calls = LaunchCount()
+lattice_face_sum_3d_plain.calls = LaunchCount()
+_COUNTS = {
+    "stiffness_lattice_3d": stiffness_lattice_3d.launches,
+    "lattice_face_sum_3d": lattice_face_sum_3d.launches,
+    "stiffness_lattice_3d_plain": stiffness_lattice_3d_plain.calls,
+    "lattice_face_sum_3d_plain": lattice_face_sum_3d_plain.calls,
+}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count and every plain twin's call count
+    to 0."""
+    for c in _COUNTS.values():
+        c.reset()
+
+
+def counts() -> dict:
+    """{name: {dtype: count}} for the kernels and their plain twins."""
+    return {k: dict(c.by_dtype) for k, c in _COUNTS.items()}

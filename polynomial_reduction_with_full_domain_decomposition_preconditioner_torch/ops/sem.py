@@ -1,0 +1,71 @@
+"""Matrix-free SEM stiffness operator on point-lattice fields.
+
+Port of the JAX package's ``ops/sem.py`` (lattice forms). The 3-D apply
+runs through the hand-written kernel ``ops/kernels.stiffness_lattice_3d``
+(its plain twin on CPU tensors); ``dmul`` is the generic per-element axis
+contraction used by the plain forms and by setup code. The result is the
+non-assembled (local) operator image; direct stiffness summation is a
+separate op (ops/gather_scatter.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["dmul", "stiffness_apply_lattice", "stiffness_diagonal_lattice"]
+
+
+def dmul(D, U, axis: int, n: int):
+    """Per-element contraction of one lattice axis with a 1-D operator
+    D (n_out, n): split (m*n) -> (m, n), out[a] = sum_k D[a, k] U[k],
+    merge back. Handles n_out != n (order transfer)."""
+    shape = tuple(U.shape)
+    n_out = D.shape[0]
+    m = shape[axis] // n
+    V = U.reshape(shape[:axis] + (m, n) + shape[axis + 1:])
+    V = torch.tensordot(V, D, dims=([axis + 1], [1]))
+    V = torch.movedim(V, -1, axis + 1)
+    return V.reshape(shape[:axis] + (m * n_out,) + shape[axis + 1:])
+
+
+def stiffness_apply_lattice(U, G, D, dim: int):
+    """SEM stiffness apply on a (Mz, My, Mx) lattice with G the tuple of
+    six per-factor lattices (G_rr, G_ss, G_tt, G_rs, G_rt, G_st).
+
+    3-D runs the fused kernel (ops/kernels.stiffness_lattice_3d), which
+    takes its differentiation matrix from the GLL tables of order
+    n = D.shape[0] in its accumulation type — as the TPU kernel bakes the
+    host f64 matrix in — so a bf16 D is never used to contract.
+    """
+    if dim != 3 or len(G) != 6 or D.shape[0] != D.shape[1]:
+        raise NotImplementedError("the port's operator is the 3-D lattice apply")
+    from .kernels import stiffness_lattice_3d
+    return stiffness_lattice_3d(U, tuple(G), D.shape[0])
+
+
+def stiffness_diagonal_lattice(G, D, dim: int):
+    """Exact matrix-free operator diagonal in the lattice layout (setup
+    only). bf16/f16 factors are summed in f32 and rounded once."""
+    if dim != 3:
+        raise NotImplementedError("the port's operator is 3-D")
+    out_dtype = G[0].dtype
+    acc = torch.float32 if out_dtype in (torch.bfloat16, torch.float16) \
+        else out_dtype
+    G = [g.to(acc) for g in G]
+    D = D.to(acc)
+    n = D.shape[0]
+    D2t = (D * D).T
+    d = torch.diagonal(D)
+    shape = G[0].shape
+
+    def tiled_diag(axis):
+        s = [1, 1, 1]
+        s[axis] = shape[axis]
+        return d.repeat(shape[axis] // n).reshape(s)
+
+    t_r = dmul(D2t, G[0], 2, n)
+    t_s = dmul(D2t, G[1], 1, n)
+    t_t = dmul(D2t, G[2], 0, n)
+    di, dj, dk = tiled_diag(2), tiled_diag(1), tiled_diag(0)
+    t_cross = 2.0 * (di * dj * G[3] + di * dk * G[4] + dj * dk * G[5])
+    return (t_r + t_s + t_t + t_cross).to(out_dtype)

@@ -1,0 +1,61 @@
+"""Stencil-form sparse operators on tensor node grids.
+
+Port of the JAX package's ``ops/stencil.py``: a matrix whose pattern lies
+in the 27-point box stencil of a tensor grid is stored as per-offset
+coefficient arrays. A wrapped neighbor has no CSR entry, so its
+coefficient is zero and wraparound contributions vanish.
+"""
+
+from __future__ import annotations
+
+from itertools import product
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+import torch.nn.functional as F
+
+__all__ = ["stencil_offsets", "stencil_from_csr", "stencil_apply"]
+
+
+def stencil_offsets(dim: int):
+    return list(product((-1, 0, 1), repeat=dim))
+
+
+def stencil_from_csr(A: sp.csr_matrix, grid_shape, dtype=torch.float32,
+                     device=None):
+    """CSR matrix over a C-order raveled tensor grid -> per-offset
+    coefficients (K, *grid_shape). Raises if an entry falls outside the
+    distance-1 box stencil."""
+    grid_shape = tuple(grid_shape)
+    dim = len(grid_shape)
+    coo = A.tocoo()
+    rc = np.stack(np.unravel_index(coo.row, grid_shape), axis=0)
+    cc = np.stack(np.unravel_index(coo.col, grid_shape), axis=0)
+    d = cc - rc
+    if np.abs(d).max(initial=0) > 1:
+        raise ValueError("matrix entries outside the box stencil")
+    key = np.zeros(coo.nnz, dtype=np.int64)
+    for a in range(dim):
+        key = key * 3 + (d[a] + 1)
+    coefs = np.zeros((3 ** dim,) + grid_shape)
+    np.add.at(coefs.reshape(3 ** dim, -1), (key, coo.row), coo.data)
+    return torch.as_tensor(coefs, dtype=dtype, device=device)
+
+
+def stencil_apply(coefs, x, dim: int):
+    """y = A x with A in stencil form; x is flat over the grid.
+
+    The reference's 27 rolls as one circular pad and 27 shifted views:
+    the view for offset o at point p reads X[(p + o) mod shape], exactly
+    what roll(X, -o) gives."""
+    if dim != 3:
+        raise NotImplementedError("the port's vertex grids are 3-D")
+    grid_shape = coefs.shape[1:]
+    X = x.reshape(grid_shape)
+    Xp = F.pad(X[None, None], (1, 1, 1, 1, 1, 1), mode="circular")[0, 0]
+    nz, ny, nx = grid_shape
+    views = torch.stack([Xp[1 + oz:1 + oz + nz, 1 + oy:1 + oy + ny,
+                            1 + ox:1 + ox + nx]
+                         for oz, oy, ox in stencil_offsets(dim)])
+    return (coefs * views).sum(dim=0).reshape(x.shape)

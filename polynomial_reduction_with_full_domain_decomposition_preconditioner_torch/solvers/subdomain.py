@@ -1,0 +1,215 @@
+"""Full-domain-decomposition + polynomial-reduction preconditioner.
+
+Port of the JAX package's ``solvers/subdomain.composite_dd`` for ONE
+structured shard with the matrix-free hybrid inner preconditioner
+(inner="amg") and the fixed inner FGMRES. On one shard the composite
+problem is the whole domain at order N, a single layer group (G=1): the
+composite operator is the SEM apply (kernel K1), the composite dssum the
+one-pass face sum with the mask fused in (kernel K2), and the outer
+residual enters the composite unchanged (the reference's restriction
+cascade feeds only ring and far groups, which one shard does not have, so
+it is not computed). Each inner FGMRES step is preconditioned by
+Chebyshev smoothing on the composite operator plus one vertex-grid
+V-cycle in >= f32.
+
+Sharding, the other inner preconditioners and inner_solver="fcg" raise
+NotImplementedError (later slices).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..amg.composite import vertex_q1_hierarchy
+from ..amg.vcycle import cheby_smooth, chain_vcycle, pack_chain
+from ..mesh.layout import elements_to_lattice
+from ..ops import sem
+from ..ops.interp import axis_contract
+from ..ops.kernels import lattice_face_sum_3d
+from ..utils.gll import diff_matrix, gll_points_weights
+from .preconditioners import Preconditioner
+from . import krylov
+
+__all__ = ["composite_dd"]
+
+
+def composite_dd(domain, mesh_builder, poly_reduction: int,
+                 subdomain_overlap: int = 1,
+                 num_iterations: int = 4,
+                 inner: str = "amg",
+                 inner_solver: str = "fgmres",
+                 num_vcycles: int = 1,
+                 cheby_order: int = 2,
+                 ptype=None,
+                 max_coarse: int = 600,
+                 fine_mesh=None,
+                 chain_info: dict | None = None) -> Preconditioner:
+    """Build the composite DD + polynomial-reduction preconditioner.
+
+    domain: the fine-level Domain (one structured shard).
+    mesh_builder(N_c): the same element grid meshed at order N_c.
+    poly_reduction: order step of the level hierarchy N, N-r, ..., 1.
+    subdomain_overlap: ring thickness in layers (checked against the
+      slab depth, as in the reference).
+    num_iterations: fixed inner FGMRES iterations.
+    num_vcycles / cheby_order: hybrid V-cycle hyperparameters.
+    ptype: preconditioner precision (default: the domain's dtype); the
+      composite geometry, mask and weight are stored in it, the vertex
+      chain in >= f32.
+    max_coarse: coarsest vertex-level size for the dense solve.
+    fine_mesh: the order-N mesh if already built (must equal
+      mesh_builder(N)).
+    chain_info: a prebuilt vertex chain (amg/composite.coarsen_chain_info
+      layout, e.g. the JAX package's), else built from mesh_builder(1).
+    """
+    if inner != "amg":
+        raise NotImplementedError(f"inner={inner!r}: the port has 'amg' only")
+    if inner_solver != "fgmres":
+        raise NotImplementedError(
+            f"inner_solver={inner_solver!r}: the port has 'fgmres' only")
+    sd = domain.sharded
+    if sd.structured is None or sd.num_shards != 1:
+        raise NotImplementedError("the port's composite is one structured shard")
+    dim = domain.dim
+    N = domain.poly_degree
+    dtype = ptype if ptype is not None else domain.dtype
+    device = domain.device
+    elem_shape = sd.structured.elem_shape
+    m_last = elem_shape[-1]
+    S = sd.structured.slab_elems
+    plane_shape = tuple(reversed(elem_shape[:-1]))  # (my, mx)
+
+    # level hierarchy N, N-r, ..., 1
+    orders = [N]
+    while orders[-1] > 1:
+        orders.append(max(orders[-1] - poly_reduction, 1))
+    V = subdomain_overlap
+    if S < V * len(orders):
+        raise ValueError(
+            f"own slab ({S} layers) must cover the ring depth "
+            f"({V * len(orders)})")
+    # one shard owns every layer, so the layer-group build of the reference
+    # gives a single group: the own slab (the whole domain) at order N
+    n = N + 1
+
+    # group geometry, mask and inverse multiplicity in the ptype
+    mesh_N = fine_mesh if fine_mesh is not None else mesh_builder(N)
+    grid = (m_last,) + plane_shape
+
+    def lattice(field):
+        a = elements_to_lattice(np.asarray(field), grid, n, dim)
+        return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+
+    geom = tuple(lattice(mesh_N.geom[..., k]) for k in range(6))
+    mask = lattice(mesh_N.dirichlet_mask)
+    weight = lattice(1.0 / mesh_N.node_degree.astype(np.float64))
+    D = torch.as_tensor(diff_matrix(n), dtype=dtype, device=device)
+
+    # vertex chain in >= f32 (the coarse correction must not round off)
+    if chain_info is None:
+        chain_info = vertex_q1_hierarchy(mesh_builder(1), plane_shape,
+                                         m_last, dim, max_coarse=max_coarse)
+    chain_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    chain = pack_chain(chain_info, dtype=chain_dtype, device=device)
+
+    # trilinear vertex -> lattice factors, one dense matrix per axis (z, y,
+    # x): rows are the lattice points of m elements, columns the m + 1
+    # vertex planes
+    r_, _ = gll_points_weights(n)
+    t = (r_ + 1.0) / 2.0
+    P1 = []
+    for m in (m_last,) + plane_shape:
+        F = np.zeros((m * n, m + 1))
+        for e in range(m):
+            F[e * n:(e + 1) * n, e] = 1.0 - t
+            F[e * n:(e + 1) * n, e + 1] = t
+        P1.append(torch.as_tensor(F, device=device).to(dtype))
+    vert_shape = (m_last + 1,) + tuple(ps + 1 for ps in plane_shape)
+
+    def comp_operator(parts):
+        return [sem.stiffness_apply_lattice(parts[0], geom, D, dim)]
+
+    def comp_dssum(parts, apply_mask=True):
+        # G = 1: no group interfaces, so the composite dssum is the face
+        # sum with the mask fused in
+        return [lattice_face_sum_3d(parts[0], n,
+                                    mask=mask if apply_mask else None)]
+
+    def comp_dot(a, b):
+        # rank-local plain point-space dot (no multiplicity weight)
+        return krylov.tree_dot(a, b)
+
+    # continuous inverse assembled diagonal of the composite operator
+    diag = comp_dssum([sem.stiffness_diagonal_lattice(geom, D, dim)],
+                      apply_mask=False)[0]
+    comp_inv_diag = [torch.where(diag > 0, 1.0 / diag, torch.zeros_like(diag))]
+
+    def A_mf(x):
+        return comp_dssum(comp_operator(x), apply_mask=True)
+
+    # Chebyshev bound: lambda_max(D^-1 A) of the composite operator by 20
+    # power-iteration steps in the ptype, x 1.1 (converges from below)
+    x = [(torch.sin(torch.arange(mask.numel(), dtype=torch.float64,
+                                 device=device).to(dtype) * 0.7311)
+          .reshape(mask.shape) * mask)]
+    lam = None
+    for _ in range(20):
+        y = [comp_inv_diag[0] * A_mf(x)[0]]
+        num = krylov.tree_dot([weight * y[0]], y)
+        den = torch.clamp(krylov.tree_dot([weight * x[0]], x), min=1e-30)
+        lam = torch.sqrt(num / den)
+        x = [y[0] * (1.0 / torch.clamp(torch.sqrt(num), min=1e-30))]
+    lmax0 = lam * 1.1
+
+    def restrict_to_vertex(parts):
+        Vt = parts[0] * weight
+        for d, F in enumerate(P1):
+            Vt = axis_contract(F.T, Vt, d)
+        return Vt.reshape(-1).to(chain_dtype) * chain["masks"][0]
+
+    def prolong_from_vertex(v):
+        Vt = v.to(dtype).reshape(vert_shape)
+        for d, F in enumerate(P1):
+            Vt = axis_contract(F, Vt, d)
+        return [Vt * mask]
+
+    def inner_precond(rr):
+        fc = comp_dssum(rr, apply_mask=True)
+        x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, None, cheby_order)
+        for _ in range(num_vcycles):
+            r = [fc[0] - A_mf(x)[0]]
+            v = chain_vcycle(chain, restrict_to_vertex(r),
+                             cheby_order=cheby_order)
+            x = [x[0] + prolong_from_vertex(v)[0]]
+            x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, x, cheby_order)
+        return x
+
+    extra = {"groups": [{"geom": geom, "mask": mask, "weight": weight,
+                         "D": D}],
+             "amg": {"chain": chain, "P1": P1, "lmax0": lmax0}}
+
+    def build(arrays, extra_, ops):
+        _, dssum_f, _, _ = ops
+
+        def _solve_inner(r):
+            # STYPE -> PTYPE cast at the tree-operator boundary; with one
+            # group the composite right-hand side is the residual itself
+            f_comp = [r.to(dtype)]
+            res = krylov.fgmres(
+                comp_operator, inner_precond,
+                lambda rr: comp_dssum(rr, apply_mask=True),
+                comp_dot, f_comp, max_iterations=num_iterations,
+                num_vectors=num_iterations, tolerance=0.0)
+            z = res.u[0].to(domain.dtype)
+            return (dssum_f(z, apply_mask=True, apply_weight=True),
+                    res.residual_history)
+
+        def precond(r):
+            return _solve_inner(r)[0]
+
+        # inner-solve observability: one application's inner history
+        precond.probe = _solve_inner
+        return precond
+
+    return Preconditioner(build=build, extra=extra)

@@ -1,0 +1,110 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package, defaults to the card (raising without one) and launches no
+kernel on CPU tensors."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import polynomial_reduction_with_full_domain_decomposition_preconditioner_torch as port
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+
+_PKG_DIR = os.path.dirname(port.__file__)
+_REPO = os.path.dirname(_PKG_DIR)
+
+_ISOLATED = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+    from functools import partial
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith("jax.") or "_tpu" in name:
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.modules["jax"] = None
+    sys.meta_path.insert(0, Block())
+    import polynomial_reduction_with_full_domain_decomposition_preconditioner_torch as port
+    names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    import torch
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    mk = partial(tg.kershaw_mesh, (4, 4, 4), epsilon=0.3, device="cpu")
+    mesh = mk(3)
+    dom = Domain(partition_mesh(mesh, 1), dtype=torch.float32, device="cpu")
+    pre = composite_dd(dom, mk, poly_reduction=2, ptype=torch.bfloat16,
+                       fine_mesh=mesh)
+    u = dom.initial_function(4, seed=0)
+    res = dom.solver(method="fgmres", max_iterations=50, precond=pre)(
+        dom.manufacture_rhs(u))
+    assert bool(res.converged), res.residual_history
+    assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
+                   for k, v in sys.modules.items() if v is not None)
+    print("modules", len(names), "iterations", res.iterations)
+""")
+
+
+def test_port_runs_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "iterations" in out.stdout
+
+
+def test_no_jax_or_reference_imports_in_sources():
+    pat = re.compile(r"^\s*(import|from)\s+[\w.]*(jax|_tpu)\b", re.M)
+    seen = 0
+    for root, _, files in os.walk(_PKG_DIR):
+        for name in files:
+            if name.endswith(".py"):
+                seen += 1
+                with open(os.path.join(root, name)) as fh:
+                    src = fh.read()
+                assert not pat.search(src), name
+                assert "import jax" not in src and "_tpu import" not in src, name
+    assert seen >= 18
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: None resolves to it")
+    with pytest.raises(RuntimeError):
+        port.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        tg.kershaw_mesh((2, 2, 2), 2)
+    sd = partition_mesh(tg.kershaw_mesh((2, 2, 2), 2, device="cpu"), 1)
+    with pytest.raises(RuntimeError):
+        Domain(sd, dtype=torch.float32, device=None)
+    assert port.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_never_launch_kernels():
+    sd = partition_mesh(tg.kershaw_mesh((2, 2, 2), 3, device="cpu"), 1)
+    dom = Domain(sd, dtype=torch.float32, device="cpu")
+    kernels.reset_counts()
+    u = dom.initial_function(0)
+    dom.solver(method="fcg", max_iterations=5)(dom.manufacture_rhs(u))
+    c = kernels.counts()
+    assert c["stiffness_lattice_3d"] == {} and c["lattice_face_sum_3d"] == {}
+    assert c["stiffness_lattice_3d_plain"]["float32"] > 0
+    assert c["lattice_face_sum_3d_plain"]["float32"] > 0
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    # a tensor that is neither on the CPU nor on a card has no kernel
+    meta = torch.empty((4, 4, 4), device="meta")
+    with pytest.raises(ValueError):
+        kernels.lattice_face_sum_3d(meta, 2)
+    with pytest.raises(ValueError):
+        kernels.stiffness_lattice_3d(meta, [meta] * 6, 2)
