@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (any failure exits non-zero):
+Phases, each printing JSON lines (any failure exits non-zero):
   env      torch/CUDA versions, the card, and nvidia-smi's name and power
            limit (also printed raw on a line of its own)
   build    nvcc build of csrc/*.cu for sm_90a (seconds)
-  kernels  every kernel against its plain PyTorch twin on the card, in
-           bf16, f32 and f64, with the stated tolerances
+  kernels  every kernel against its plain PyTorch twin on the card with
+           the stated tolerances: K1 and K2 in bf16, f32 and f64 at the
+           main path's lattice, at odd shapes and at the p-multigrid
+           lattices (n = 6, 4, 2); K3 (the bf16-split tensor-core apply)
+           in bf16 and f32 against its twin, against K1 and against f64
+  study    the precision study (studies/stiffness_precision.run) at
+           m = 128 and m = 512: K1 and K3 timed, K3's error against K1
   small    a Kershaw 4^3 N=3 composite-DD solve on the card vs the same
            solve on the CPU (plain twins): same iterations and history
+  variants the same comparison on Kershaw 4^3 N=5 for p-multigrid and for
+           the composite with a Jacobi inner preconditioner under FCG
   solve    the main path: Kershaw eps=0.3, 16^3 elements, N=7 (2,097,152
            points), f32 FGMRES(20) to 1e-4 preconditioned by
            composite_dd(poly_reduction=6, inner="amg", ptype=bfloat16);
@@ -18,9 +25,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
   profile  one more solve under torch.profiler: the union of device
            activity over the solve's wall time, and the top kernels
   refine   f64 iterative refinement of that solve to 1e-10
-Then one {"kernels": [...]} line (each kernel variant of the main path:
-its launches there, error, time, plain time and bound) and, last, the
-{"ok": true, "device": {...}} line.
+  pmg      the same mesh under f32 FCG to 1e-4 preconditioned by
+           pmultigrid(poly_reduction=2, smooth_damping=0.5) (orders 7, 5,
+           3, 1) and by jacobi: K1 and K2 at n = 8, 6, 4, 2 at full width,
+           and one p-multigrid solve under torch.profiler
+Then one {"kernels": [...]} line (each kernel variant: its launches on
+the driven paths, error, time, plain time and bound), the seconds each
+phase took and, last, the {"ok": true, "device": {...}} line.
 """
 
 import json
@@ -32,35 +43,119 @@ from functools import partial
 PKG = "polynomial_reduction_with_full_domain_decomposition_preconditioner_torch"
 TPU_KERNELS = ("polynomial_reduction_with_full_domain_decomposition_"
                "preconditioner_tpu/ops/pallas_kernels.py")
+KERNEL_FILES = {   # name -> (CUDA source, the TPU kernel it replaces)
+    "stiffness_lattice_3d": ("stiffness.cu", TPU_KERNELS + ":295"),
+    "lattice_face_sum_3d": ("face_sum.cu", TPU_KERNELS + ":102"),
+    "stiffness_lattice_3d_split": (
+        "stiffness_split.cu", "artifacts/bench_stiffness_precision.py:98"),
+}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12,   # f32 non-tensor (bf16
               "float64": 34e12}                      # I/O computes in f32)
+PEAK_BF16_TENSOR_FLOPS = 989e12
+# K3 against its twin in f32: the bf16x3 split truncates lo = x - hi at up
+# to 2^-17 of the value, and which way a lo rounds hangs on the last f32
+# bit of the W intermediates, so two summation orders of the same passes
+# differ by a few 1e-6 of max (not by K1's 2e-7 of plain f32 round-off)
+K3_F32_TOL = 1e-5
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters):
-    """Mean milliseconds of fn() over ``iters`` calls, by CUDA events,
-    after a warm-up."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+def plain_calls(counts, allow=()):
+    """Calls of the plain twins in a counts() snapshot, leaving out the
+    (twin, dtype) pairs in ``allow``."""
+    return sum(n for k, c in counts.items() if k.endswith("_plain")
+               for dt, n in c.items() if (k, dt) not in allow)
+
+
+def add_counts(total, counts):
+    for name, by_dtype in counts.items():
+        slot = total.setdefault(name, {})
+        for dt, n in by_dtype.items():
+            slot[dt] = slot.get(dt, 0) + n
+
+
+def check_split_kernel(torch, kernels, dev, timed):
+    """K3 vs its plain twin, vs K1 and vs an f64 oracle on the card."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
+    name, n = "stiffness_lattice_3d_split", 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    rand = lambda shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=torch.float64)
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    tol_twin = {"float32": K3_F32_TOL, "bfloat16": 1e-2}
+    tol_k1 = {"float32": 1e-4, "bfloat16": 1e-2}
+    # the fragment layout first: a u that is nonzero in one point, where a
+    # wrong lane <-> element map shows as an O(1) error
+    shape = (16, 8, 24)
+    G64 = [rand(shape) for _ in range(6)]
+    for dt_name, dt in dts.items():
+        worst = 0.0
+        for pt in [(0, 0, 0), (3, 5, 17), (15, 7, 23), (9, 2, 8)]:
+            U = torch.zeros(shape, device=dev, dtype=dt)
+            U[pt] = 1.0
+            G = [g.to(dt) for g in G64]
+            out = kernels.stiffness_lattice_3d_split(U, G, n).double()
+            ref = kernels.stiffness_lattice_3d_split_plain(U, G, n).double()
+            worst = max(worst, ((out - ref).abs().max()
+                                / ref.abs().max()).item())
+        line = {"phase": "kernels", "kernel": name, "shape": shape, "n": n,
+                "dtype": dt_name, "input": "one nonzero point",
+                "rel_err": worst, "ok": worst <= tol_twin[dt_name]}
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"{name}: fragment layout is wrong: {line}")
+    for shape in [(16, 8, 24), (48, 40, 56), (128, 128, 128)]:
+        U64, G64 = rand(shape), [rand(shape) for _ in range(6)]
+        for dt_name, dt in dts.items():
+            U, G = U64.to(dt), [g.to(dt) for g in G64]
+            out = kernels.stiffness_lattice_3d_split(U, G, n)
+            ref = kernels.stiffness_lattice_3d_split_plain(U, G, n)
+            k1 = kernels.stiffness_lattice_3d(U, G, n)
+            oracle = kernels.stiffness_lattice_3d_plain(
+                U.double(), [g.double() for g in G], n)
+            torch.cuda.synchronize()
+            scale = ref.double().abs().max().item()
+            err = (out.double() - ref.double()).abs().max().item()
+            e_k1 = (out.double() - k1.double()).abs().max().item() \
+                / k1.double().abs().max().item()
+            e64 = (out.double() - oracle).abs().max().item() \
+                / oracle.abs().max().item()
+            ok = (err <= tol_twin[dt_name] * scale and e_k1 <= tol_k1[dt_name]
+                  and (dt_name != "bfloat16" or e64 <= 0.05))
+            line = {"phase": "kernels", "kernel": name, "shape": shape,
+                    "n": n, "dtype": dt_name, "max_abs_err": err,
+                    "rel_err": err / scale, "rel_err_vs_k1": e_k1,
+                    "rel_err_vs_f64": e64, "ok": ok}
+            emit(line)
+            if not ok:
+                raise AssertionError(f"{name} disagrees: {line}")
+            if shape == (128, 128, 128):
+                npts = U.numel()
+                passes = 10 if dt_name == "bfloat16" else 12
+                timed[(name, dt_name)] = {
+                    "max_abs_err": err,
+                    "ms": cuda_ms(lambda: kernels.stiffness_lattice_3d_split(
+                        U, G, n), 20),
+                    "plain_ms": cuda_ms(
+                        lambda: kernels.stiffness_lattice_3d_split_plain(
+                            U, G, n), 3),
+                    "bytes": 8 * npts * U.element_size(),
+                    # the z-contractions and the metric multiply in f32
+                    "flops": npts * (4 * n + 18),
+                    # the bf16 passes of the x- and y-contractions
+                    "tensor_flops": npts * passes * 2 * n,
+                }
 
 
 def check_kernels(torch, kernels, dev):
     """Each kernel vs its plain twin on the card; returns the timed
-    main-path variants keyed by (kernel, dtype)."""
+    variants keyed by (kernel, dtype)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rand = lambda shape: torch.randn(shape, generator=gen, device=dev,
@@ -68,8 +163,10 @@ def check_kernels(torch, kernels, dev):
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
     timed = {}
+    # the p-multigrid level lattices of the 16^3 mesh: orders 5, 3, 1
+    pmg_lattices = [((96, 96, 96), 6), ((64, 64, 64), 4), ((32, 32, 32), 2)]
     for shape, n in [((128, 128, 128), 8), ((48, 40, 56), 8),
-                     ((12, 10, 14), 2)]:
+                     ((12, 10, 14), 2)] + pmg_lattices:
         U64, G64 = rand(shape), [rand(shape) for _ in range(6)]
         for name, dt in dts.items():
             U, G = U64.to(dt), [g.to(dt) for g in G64]
@@ -90,6 +187,11 @@ def check_kernels(torch, kernels, dev):
                 line["rel_err_vs_f64"] = e64 / oracle.abs().max().item()
                 ok = ok and e64 <= 0.05 * oracle.abs().max().item()
             line["ok"] = ok
+            if (shape, n) in pmg_lattices:
+                line["ms"] = cuda_ms(
+                    lambda: kernels.stiffness_lattice_3d(U, G, n), 20)
+                line["bound_ms"] = (8 * U.numel() * U.element_size()
+                                    / HBM_BYTES_PER_S * 1e3)
             emit(line)
             if not ok:
                 raise AssertionError(f"stiffness_lattice_3d disagrees: {line}")
@@ -103,7 +205,7 @@ def check_kernels(torch, kernels, dev):
                     "bytes": 8 * npts * U.element_size(),
                     "flops": npts * (12 * n + 18),
                 }
-    for shape, n in [((128, 128, 128), 8), ((24, 16, 40), 8)]:
+    for shape, n in [((128, 128, 128), 8), ((24, 16, 40), 8)] + pmg_lattices:
         U64 = rand(shape)
         mask64 = (rand(shape) > 0).double()
         w64 = 1.0 / 2.0 ** torch.randint(0, 4, shape, generator=gen,
@@ -131,6 +233,12 @@ def check_kernels(torch, kernels, dev):
                         "shape": shape, "n": n, "dtype": name,
                         "mask_weight": sorted(kw), "max_abs_err": err,
                         "rel_err": rel, "ok": ok}
+                if (shape, n) in pmg_lattices and set(kw) == {"mask"}:
+                    line["ms"] = cuda_ms(
+                        lambda: kernels.lattice_face_sum_3d(U, n, **kw), 50)
+                    line["bound_ms"] = (
+                        U.numel() * (2 * U.element_size() + mask.element_size())
+                        / HBM_BYTES_PER_S * 1e3)
                 emit(line)
                 if not ok:
                     raise AssertionError(f"lattice_face_sum_3d disagrees: {line}")
@@ -145,10 +253,11 @@ def check_kernels(torch, kernels, dev):
                                          + mask.element_size()),
                         "flops": npts * 13,
                     }
+    check_split_kernel(torch, kernels, dev, timed)
     return timed
 
 
-def profile_solve(torch, solve, f):
+def profile_solve(torch, solve, f, phase="profile", top_n=12):
     """Device busy share and top kernels of one solve (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -165,11 +274,11 @@ def profile_solve(torch, solve, f):
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
-        key = e.name if len(e.name) < 60 else e.name[:60]
+        key = e.name if len(e.name) < 70 else e.name[:70]
         cnt, tot = by_name.get(key, (0, 0.0))
         by_name[key] = (cnt + 1, tot + (b - a))
     if not spans:
-        return {"phase": "profile", "device_busy_share": "not measured",
+        return {"phase": phase, "device_busy_share": "not measured",
                 "reason": "the profiler recorded no device activity"}
     spans.sort()
     busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
@@ -180,8 +289,8 @@ def profile_solve(torch, solve, f):
         else:
             cur_b = max(cur_b, b)
     busy += cur_b - cur_a
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"phase": "profile", "profiled_wall_ms": wall_us / 1e3,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
+    return {"phase": phase, "profiled_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us,
             "device_activities": len(spans),
@@ -189,32 +298,133 @@ def profile_solve(torch, solve, f):
                     for k, (c, t) in top]}
 
 
-def small_reference(torch, dev):
-    """A small composite-DD solve on the card vs the CPU (plain twins)."""
+def card_vs_cpu(torch, kernels, dev, phase, label, N, make_precond, method,
+                max_err):
+    """A Kershaw 4^3 order-N f64 solve to 1e-8 on the card vs the same
+    solve on the CPU (plain twins): same iterations, same history.
+    Returns the card solve's launch counts."""
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
-    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
     out = {}
     for where in ("cpu", dev):
         mk = partial(kershaw_mesh, (4, 4, 4), epsilon=0.3, device=where)
-        mesh = mk(3)
+        mesh = mk(N)
         dom = Domain(partition_mesh(mesh, 1), dtype=torch.float64, device=where)
-        pre = composite_dd(dom, mk, poly_reduction=2, fine_mesh=mesh)
+        pre = make_precond(dom, mk, mesh)
         u = dom.initial_function(4, seed=1)
-        res = dom.solver(method="fgmres", max_iterations=60, tolerance=1e-8,
-                         precond=pre)(dom.manufacture_rhs(u))
+        f = dom.manufacture_rhs(u)
+        kernels.reset_counts()
+        res = dom.solver(method=method, max_iterations=200, tolerance=1e-8,
+                         precond=pre)(f)
         out[str(where)] = (res.iterations, res.residual_history.cpu(),
-                           (res.u - u).abs().max().item())
-    (ic, hc, _), (ig, hg, eg) = out["cpu"], out[str(dev)]
+                           (res.u - u).abs().max().item(), kernels.counts())
+    (ic, hc, _, _), (ig, hg, eg, counts) = out["cpu"], out[str(dev)]
     k = ic + 1
     rel = ((hg[:k] - hc[:k]).abs() / hc[:k].abs()).max().item()
-    line = {"phase": "small", "mesh": "kershaw 4^3 N=3 f64", "iterations_cpu": ic,
-            "iterations_gpu": ig, "history_max_rel_diff": rel,
-            "max_err_gpu": eg, "ok": ic == ig and rel <= 1e-6 and eg < 1e-6}
+    line = {"phase": phase, "mesh": f"kershaw 4^3 N={N} f64", "precond": label,
+            "method": method, "iterations_cpu": ic, "iterations_gpu": ig,
+            "history_max_rel_diff": rel, "max_err_gpu": eg,
+            "launches": counts,
+            "ok": (ic == ig and rel <= 1e-6 and eg < max_err
+                   and plain_calls(counts) == 0
+                   and sum(counts["stiffness_lattice_3d"].values()) > 0
+                   and sum(counts["lattice_face_sum_3d"].values()) > 0)}
     emit(line)
     if not line["ok"]:
         raise AssertionError(f"card and CPU solves disagree: {line}")
+    return counts
+
+
+def run_study(torch, kernels):
+    """The precision study on the card at m = 128 and m = 512; returns its
+    launch counts (K3's path)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import stiffness_precision
+    kernels.reset_counts()
+    for m in (128, 512):
+        for row in stiffness_precision.run(m):
+            emit({"phase": "study", **row})
+            tol = 1e-4 if row["dtype"] == "float32" else 1e-2
+            if not (row["ms"] > 0 and row["rel_err_vs_k1"] <= tol
+                    and row["rel_err_vs_f64"] <= 0.05):
+                raise AssertionError(f"study row failed its checks: {row}")
+    counts = kernels.counts()
+    # the only plain version the study runs is its f64 oracle
+    stray = plain_calls(counts, allow={("stiffness_lattice_3d_plain",
+                                        "float64")})
+    emit({"phase": "study", "launches": counts, "stray_plain_calls": stray})
+    if stray or not all(counts["stiffness_lattice_3d_split"].get(dt, 0) > 0
+                        for dt in ("bfloat16", "float32")):
+        raise AssertionError(f"the study did not run on the kernels: {counts}")
+    return counts
+
+
+PMG_DAMPING = 0.5
+
+
+def run_pmg(torch, kernels, dom, mk, u_star, f):
+    """The main-path mesh under f32 FCG to 1e-4 with p-multigrid (orders
+    7, 5, 3, 1) and with Jacobi; returns the two solves' launch counts.
+
+    The smoother's damping is 0.5, not pmultigrid's default 2/3: damped
+    Jacobi needs omega * lambda_max(D^-1 A) < 2, and on this mesh
+    lambda_max is 3.47 (the main path's lmax0 over its 1.1 margin), so
+    2/3 amplifies the top modes on every level visit. With the default
+    neither package's p-multigrid beats Jacobi here (PERF.md)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import jacobi, pmultigrid
+    total, its = {}, {}
+    pmg_label = f"pmultigrid(poly_reduction=2, smooth_damping={PMG_DAMPING})"
+    t0 = time.time()
+    pres = {pmg_label: pmultigrid(dom, mk, poly_reduction=2,
+                                  smooth_damping=PMG_DAMPING),
+            "jacobi": jacobi(dom)}
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    for label, pre in pres.items():
+        solve = dom.solver(method="fcg", max_iterations=2000, precond=pre)
+        solve(f)                                   # warm-up
+        kernels.reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = solve(f)
+        stop.record()
+        torch.cuda.synchronize()
+        seconds = start.elapsed_time(stop) / 1e3
+        counts = kernels.counts()
+        add_counts(total, counts)
+        err = (res.u - u_star).abs().max().item()
+        its[label] = res.iterations
+        hist = res.residual_history.cpu()
+        k1 = sum(counts["stiffness_lattice_3d"].values())
+        k2 = sum(counts["lattice_face_sum_3d"].values())
+        line = {"phase": "pmg", "mesh": "kershaw eps=0.3 16^3 N=7",
+                "precond": label, "method": "fcg f32 to 1e-4",
+                "levels_setup_seconds": setup_s,
+                "iterations": res.iterations, "converged": bool(res.converged),
+                "solve_seconds": seconds,
+                "ms_per_iteration": 1e3 * seconds / max(res.iterations, 1),
+                "k1_per_iteration": k1 / max(res.iterations, 1),
+                "k2_per_iteration": k2 / max(res.iterations, 1),
+                "residuals": [float(x) for x in hist[:4]],
+                "max_err": err, "launches": counts}
+        emit(line)
+        # at a relative residual of 1e-4 the error follows the tolerance:
+        # p-multigrid ends near 0.02 of a solution in [0, 1], Jacobi near 0.1
+        max_err = 0.05 if label == pmg_label else float("inf")
+        if not (bool(res.converged) and err == err and err < max_err
+                and plain_calls(counts) == 0 and k1 > 0 and k2 > 0):
+            raise AssertionError(f"pmg-phase solve failed its checks: {line}")
+        if label == pmg_label:
+            # device times of K1 and K2 at every level's order, and how
+            # far the host holds the card back on this path
+            emit(profile_solve(torch, solve, f, phase="pmg-profile",
+                               top_n=20))
+    a, b = its[pmg_label], its["jacobi"]
+    if not a < b // 2:
+        raise AssertionError(f"p-multigrid took {a} iterations, Jacobi {b}: "
+                             "not fewer than half")
+    return total
 
 
 def main():
@@ -226,8 +436,17 @@ def main():
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import cuda_lib, kernels
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import pmultigrid
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.refine import refine_solve
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+
+    phase_seconds, clock = {}, [time.time()]
+
+    def phase_done(name):
+        torch.cuda.synchronize()
+        now = time.time()
+        phase_seconds[name] = now - clock[0]
+        clock[0] = now
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -244,11 +463,34 @@ def main():
     so = cuda_lib.build()
     cuda_lib.load()
     emit({"phase": "build", "seconds": time.time() - t0, "library": so[-40:]})
+    phase_done("env+build")
 
     timed = check_kernels(torch, kernels, dev)
-    small_reference(torch, dev)
+    phase_done("kernels")
+    path_counts = {}       # launches summed over every driven path
+    add_counts(path_counts, run_study(torch, kernels))
+    phase_done("study")
+    add_counts(path_counts, card_vs_cpu(
+        torch, kernels, dev, "small", "composite_dd(inner=amg)", 3,
+        lambda dom, mk, mesh: composite_dd(dom, mk, poly_reduction=2,
+                                           fine_mesh=mesh),
+        "fgmres", 1e-6))
+    phase_done("small")
+    add_counts(path_counts, card_vs_cpu(
+        torch, kernels, dev, "variants", "pmultigrid(poly_reduction=2)", 5,
+        lambda dom, mk, mesh: pmultigrid(dom, mk, poly_reduction=2),
+        "fcg", 1e-6))
+    add_counts(path_counts, card_vs_cpu(
+        torch, kernels, dev, "variants",
+        "composite_dd(inner=jacobi, inner_solver=fcg)", 5,
+        lambda dom, mk, mesh: composite_dd(dom, mk, poly_reduction=2,
+                                           inner="jacobi", inner_solver="fcg",
+                                           fine_mesh=mesh),
+        "fgmres", 1e-5))
+    phase_done("variants")
 
     # ---- the main path ----
+    torch.cuda.reset_peak_memory_stats()
     shape, N = (16, 16, 16), 7
     t0 = time.time()
     mk = partial(kershaw_mesh, shape, epsilon=0.3, device=dev)
@@ -280,13 +522,12 @@ def main():
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(stop) / 1e3)
     solve_counts = kernels.counts()
+    add_counts(path_counts, solve_counts)
     hist = res.residual_history.cpu()
     hist = hist[torch.isfinite(hist)]
     its = res.iterations
     conv = bool(res.converged)
     finite = bool(torch.isfinite(res.u).all()) and tuple(res.u.shape) == (128, 128, 128)
-    plain_calls = sum(sum(c.values()) for k, c in solve_counts.items()
-                      if k.endswith("_plain"))
     line = {"phase": "solve", "mesh": "kershaw eps=0.3 16^3 N=7",
             "points": mesh.num_points, "setup_seconds": setup_s,
             "precond_setup_seconds": precond_s, "first_solve_seconds": first_s,
@@ -297,11 +538,14 @@ def main():
             "lmax0": float(pre.extra["amg"]["lmax0"]),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(line)
-    if not (conv and 11 <= its <= 13 and finite and plain_calls == 0
+    if not (conv and 11 <= its <= 13 and finite
+            and plain_calls(solve_counts) == 0
             and sum(solve_counts["stiffness_lattice_3d"].values()) > 0
             and sum(solve_counts["lattice_face_sum_3d"].values()) > 0):
         raise AssertionError(f"main-path solve failed its checks: {line}")
+    phase_done("solve")
     emit(profile_solve(torch, solve, f))
+    phase_done("profile")
 
     dom64 = Domain(sd, dtype=torch.float64, device=dev)
     u64 = dom64.to_device_field(dom.from_device_field(u_star))
@@ -312,37 +556,42 @@ def main():
     torch.cuda.synchronize()
     ref_s = time.time() - t0
     refine_counts = kernels.counts()
+    add_counts(path_counts, refine_counts)
     err64 = (rr.u - u64).abs().max().item()
     line = {"phase": "refine", "rel_residual": rr.rel_residual,
             "max_error": err64, "cycles": rr.cycles,
             "inner_iterations": rr.inner_iterations, "seconds": ref_s,
             "history": rr.history, "launches": refine_counts}
     emit(line)
-    plain_calls = sum(sum(c.values()) for k, c in refine_counts.items()
-                      if k.endswith("_plain"))
-    if not (rr.rel_residual <= 1e-10 and plain_calls == 0):
+    if not (rr.rel_residual <= 1e-10 and plain_calls(refine_counts) == 0):
         raise AssertionError(f"refinement failed its checks: {line}")
+    phase_done("refine")
+    del dom64, u64, f64, rr
+
+    add_counts(path_counts, run_pmg(torch, kernels, dom, mk, u_star, f))
+    phase_done("pmg")
 
     entries = []
     for (name, dt), t in sorted(timed.items()):
-        launches = (solve_counts[name].get(dt, 0)
-                    + refine_counts[name].get(dt, 0))
+        launches = path_counts.get(name, {}).get(dt, 0)
+        if launches == 0:
+            raise AssertionError(f"{name}[{dt}] was launched on no path")
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = t["flops"] / PEAK_FLOPS[dt] * 1e3
+        t_ops = (t["flops"] / PEAK_FLOPS[dt]
+                 + t.get("tensor_flops", 0) / PEAK_BF16_TENSOR_FLOPS) * 1e3
+        source, replaces = KERNEL_FILES[name]
         entries.append({
             "name": f"{name}[{dt}]", "route": "cuda",
-            "source": f"{PKG}/csrc/"
-                      + ("stiffness.cu" if name == "stiffness_lattice_3d"
-                         else "face_sum.cu"),
-            "replaces": TPU_KERNELS + (":295" if name == "stiffness_lattice_3d"
-                                       else ":102"),
+            "source": f"{PKG}/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None})
-    print("no single PyTorch call computes either kernel's function: "
+    print("no single PyTorch call computes any of these kernels' functions: "
           "library_ms is null", flush=True)
+    emit({"phase_seconds": phase_seconds,
+          "total_seconds": sum(phase_seconds.values())})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

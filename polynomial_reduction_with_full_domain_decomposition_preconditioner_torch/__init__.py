@@ -1,9 +1,8 @@
 """PyTorch/CUDA port of the SEM Poisson solver with polynomial-reduction
 domain-decomposition preconditioning.
 
-A second package beside the JAX reference
-(``polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu``),
-mirroring its module paths and public names. It imports torch, numpy and
+A second package beside the JAX reference (the package of the same name
+ending in ``_tpu``), mirroring its module paths and public names. It imports torch, numpy and
 scipy only — never jax, and nothing of the JAX package.
 
 Entry points take ``device=None``, which means the CUDA card; without

@@ -4,8 +4,11 @@ Port of the part of the JAX package's ``amg/composite.py`` that the
 matrix-free hybrid inner preconditioner needs: the P1 re-discretization
 on the global element-vertex grid and the geometric coarsen-by-2 Galerkin
 chain (``coarsen_chain_info`` / ``vertex_q1_hierarchy``). Host float64
-numpy/scipy; device packing lives in amg/vcycle.py. The assembled
-composite FEM hierarchy (inner="fem-amg") belongs to a later slice.
+numpy/scipy; device packing lives in amg/vcycle.py. ``save_chain_info``
+and ``load_chain_info`` are the port's copy of the JAX package's vertex-
+chain checkpoint (``runtime/checkpoint.py``), the same npz layout. The
+assembled composite FEM hierarchy (inner="fem-amg") belongs to a later
+slice.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import scipy.sparse as sp
 
 from .fem import p1_stiffness_grid
 
-__all__ = ["coarsen_chain_info", "vertex_q1_hierarchy"]
+__all__ = ["coarsen_chain_info", "vertex_q1_hierarchy", "save_chain_info",
+           "load_chain_info"]
 
 
 def _grid_map_1d(m: int, o: int) -> np.ndarray:
@@ -153,3 +157,54 @@ def vertex_q1_hierarchy(mesh_order1, plane_shape, m_last: int, dim: int,
         raise ValueError(f"vertex grid {X.shape[:-1]} != {vert_shape}")
     A1 = _mask_fold(p1_stiffness_grid(X), _grid_boundary_mask(vert_shape))
     return coarsen_chain_info(A1, vert_shape, max_coarse=max_coarse)
+
+
+def _pack_csr(d: dict, key: str, m: sp.csr_matrix):
+    d[f"{key}.data"] = m.data
+    d[f"{key}.indices"] = m.indices
+    d[f"{key}.indptr"] = m.indptr
+    d[f"{key}.shape"] = np.asarray(m.shape)
+
+
+def _unpack_csr(z, key: str) -> sp.csr_matrix:
+    return sp.csr_matrix(
+        (z[f"{key}.data"], z[f"{key}.indices"], z[f"{key}.indptr"]),
+        shape=tuple(z[f"{key}.shape"]))
+
+
+def save_chain_info(path: str, info: dict):
+    """Vertex-chain checkpoint (coarsen_chain_info output: level CSRs,
+    transfer factors, masks, Chebyshev bounds, dense coarse inverse) as
+    raw npz; ``path`` should end in ``.npz`` (numpy appends it otherwise)."""
+    d = {"num_levels": np.asarray(len(info["mats"])),
+         "lmaxs": np.asarray(info["lmaxs"]),
+         "coarse_inv": info["coarse_inv"]}
+    for l, m in enumerate(info["mats"]):
+        _pack_csr(d, f"A{l}", m.tocsr())
+    for l, m in enumerate(info["prolongs"]):
+        _pack_csr(d, f"P{l}", m.tocsr())
+    for l, s in enumerate(info["shapes"]):
+        d[f"shape{l}"] = np.asarray(s)
+    for l, m in enumerate(info["masks"]):
+        d[f"mask{l}"] = m
+    for l, fs in enumerate(info["factors"]):
+        for k, F in enumerate(fs):
+            d[f"fac{l}.{k}"] = F
+    np.savez_compressed(path, **d)
+
+
+def load_chain_info(path: str) -> dict:
+    with np.load(path) as z:
+        L = int(z["num_levels"])
+        dim = len(z["shape0"])
+        return {
+            "mats": [_unpack_csr(z, f"A{l}") for l in range(L)],
+            "prolongs": [_unpack_csr(z, f"P{l}") for l in range(L - 1)],
+            "shapes": [tuple(int(x) for x in z[f"shape{l}"])
+                       for l in range(L)],
+            "masks": [z[f"mask{l}"] for l in range(L)],
+            "factors": [[z[f"fac{l}.{k}"] for k in range(dim)]
+                        for l in range(L - 1)],
+            "lmaxs": list(z["lmaxs"]),
+            "coarse_inv": z["coarse_inv"],
+        }

@@ -1,8 +1,7 @@
 // K2: one-pass structured face summation (direct stiffness summation on
 // one shard) on a (Mz, My, Mx) point lattice.
 //
-// Replaces the Pallas TPU kernel
-//   polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu/
+// Replaces the Pallas TPU kernel of the JAX package (..._tpu/)
 //   ops/pallas_kernels.py::lattice_face_sum_3d (_face_sum_kernel)
 // which, for x then y then z, computes U += hi*U[X+1] + lo*U[X-1] with
 //   hi[X] = 1 iff X % n == n-1 and X != M-1,  lo[X] = 1 iff X % n == 0 and X != 0

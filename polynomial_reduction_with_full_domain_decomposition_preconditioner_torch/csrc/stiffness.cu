@@ -1,7 +1,6 @@
 // K1: fused SEM stiffness apply on a (Mz, My, Mx) point lattice.
 //
-// Replaces the Pallas TPU kernel
-//   polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu/
+// Replaces the Pallas TPU kernel of the JAX package (..._tpu/)
 //   ops/pallas_kernels.py::stiffness_lattice_3d (_stiffness_kernel)
 // which computes the local, unassembled image Au = sum_a D_a^T sum_b G_ab D_b u
 // one n^3 element at a time, reading u and the six metric factors once and

@@ -86,6 +86,8 @@ def load() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.prfdd_stiffness_3d.argtypes = [i32, i32] + [vp] * 9 + [i64] * 3 + [vp]
     lib.prfdd_stiffness_3d.restype = i32
+    lib.prfdd_stiffness_split_3d.argtypes = lib.prfdd_stiffness_3d.argtypes
+    lib.prfdd_stiffness_split_3d.restype = i32
     lib.prfdd_face_sum_3d.argtypes = [i32, i32, i32] + [vp] * 4 + [i64] * 3 + [vp]
     lib.prfdd_face_sum_3d.restype = i32
     return lib

@@ -1,7 +1,9 @@
 """The port's hand-written Hopper kernels, their plain twins and counts.
 
 Each kernel keeps the JAX name of the Pallas TPU kernel it replaces
-(``..._tpu/ops/pallas_kernels.py``) and has a plain PyTorch twin,
+(``..._tpu/ops/pallas_kernels.py``; the bf16-split study kernel K3
+replaces ``artifacts/bench_stiffness_precision.py::apply_split`` and is
+named after K1) and has a plain PyTorch twin,
 ``*_plain``, with the same arithmetic. Dispatch: a CPU tensor goes to the
 plain twin; a CUDA tensor goes to the kernel (csrc/*.cu, built on first
 use by ops/cuda_lib.py) or raises — there is no fallback.
@@ -23,6 +25,7 @@ from .gather_scatter import lattice_face_sum
 from .sem import dmul
 
 __all__ = ["stiffness_lattice_3d", "stiffness_lattice_3d_plain",
+           "stiffness_lattice_3d_split", "stiffness_lattice_3d_split_plain",
            "lattice_face_sum_3d", "lattice_face_sum_3d_plain",
            "LaunchCount", "reset_counts", "counts"]
 
@@ -129,6 +132,96 @@ def stiffness_lattice_3d(U, G, n: int):
 
 
 # ---------------------------------------------------------------------------
+# K3: K1 with bf16-split tensor-core contractions (replaces
+# artifacts/bench_stiffness_precision.py::apply_split, a precision study)
+
+
+def _split_bf16(x):
+    """x = hi + lo with both parts bf16 values (round to nearest even),
+    returned as f32 tensors: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    lo = (x.float() - hi.float()).to(torch.bfloat16)
+    return hi.float(), lo.float()
+
+
+def _split_dmul(M, X, axis: int, n: int, exact: bool):
+    """dmul(M, X) as bf16 passes with f32 accumulation: 2 passes when X
+    holds bf16 values exactly (X M_hi + X M_lo), else the bf16x3 split
+    (hi hi + the two cross terms; the lo lo term is dropped). The cross
+    terms come in the order of the study's x-form (axis 2) and y-form."""
+    M_hi, M_lo = _split_bf16(M)
+    if exact:
+        return dmul(M_hi, X, axis, n) + dmul(M_lo, X, axis, n)
+    X_hi, X_lo = _split_bf16(X)
+    out = dmul(M_hi, X_hi, axis, n)
+    if axis == 2:
+        return out + dmul(M_lo, X_hi, axis, n) + dmul(M_hi, X_lo, axis, n)
+    return out + dmul(M_hi, X_lo, axis, n) + dmul(M_lo, X_hi, axis, n)
+
+
+def stiffness_lattice_3d_split_plain(U, G, n: int):
+    """K1's apply with the x- and y-contractions as bf16 passes summed in
+    f32 (the products of two bf16 values are exact in f32): f32 I/O splits
+    u and D (3 passes), bf16 I/O contracts the exact u with the split D (2
+    passes), the f32 W intermediates always take 3. The z-contractions use
+    the unsplit f32 D; one cast at the end. D is the f64 GLL table in f32,
+    the same table K1 uses, so the two differ by the split only. On a card
+    the f32 products need TF32 off, as the package root sets it."""
+    if U.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("stiffness_lattice_3d_split: bf16 or f32 I/O, "
+                        f"got {U.dtype}")
+    stiffness_lattice_3d_split_plain.calls.add(U.dtype)
+    exact_u = U.dtype == torch.bfloat16
+    D = _diff(n, torch.float32, U.device)
+    Dt = D.T
+    Uf = U.float()
+    G0, G1, G2, G3, G4, G5 = (g.float() for g in G)
+    Dr = _split_dmul(D, Uf, 2, n, exact_u)
+    Ds = _split_dmul(D, Uf, 1, n, exact_u)
+    Dt_ = dmul(D, Uf, 0, n)
+    Wr = G0 * Dr + G3 * Ds + G4 * Dt_
+    Ws = G3 * Dr + G1 * Ds + G5 * Dt_
+    Wt = G4 * Dr + G5 * Ds + G2 * Dt_
+    out = (_split_dmul(Dt, Wr, 2, n, False) + _split_dmul(Dt, Ws, 1, n, False)
+           + dmul(Dt, Wt, 0, n))
+    return out.to(U.dtype)
+
+
+def stiffness_lattice_3d_split(U, G, n: int):
+    """The bf16-split tensor-core stiffness apply on a (Mz, My, Mx)
+    lattice, bf16 or f32 I/O. The kernel takes n = 8 on any element-aligned
+    lattice; another n on a CUDA tensor raises ValueError."""
+    if U.device.type == "cpu":
+        return stiffness_lattice_3d_split_plain(U, G, n)
+    name = "stiffness_lattice_3d_split"
+    if len(G) != 6:
+        raise ValueError(f"{name}: need 6 geometric factor lattices")
+    _check_lattice(name, U, n, G)
+    if U.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: bf16 or f32 I/O, got {U.dtype}")
+    if any(g.dtype != U.dtype for g in G):
+        raise TypeError(f"{name}: factors must have U's dtype")
+    if n != 8:
+        raise ValueError(f"{name}: the kernel contracts K = 8 (n = 8), got n={n}")
+    mz, my, mx = U.shape
+    if my // n > 65535 or mz // n > 65535:
+        raise ValueError(f"{name}: lattice exceeds the launch grid")
+    out = torch.empty_like(U)
+    # the kernel moves point pairs (8 B in f32, 4 B in bf16)
+    if any(t.data_ptr() % (2 * U.element_size()) for t in (U, out, *G)):
+        raise ValueError(f"{name}: lattices must be aligned to a point pair")
+    D = _diff(n, torch.float32, U.device)
+    with torch.cuda.device(U.device):
+        stream = torch.cuda.current_stream(U.device).cuda_stream
+        err = cuda_lib.load().prfdd_stiffness_split_3d(
+            _CODE[U.dtype], n, U.data_ptr(), *(g.data_ptr() for g in G),
+            D.data_ptr(), out.data_ptr(), mz, my, mx, stream)
+    _raise_on(err, name)
+    stiffness_lattice_3d_split.launches.add(U.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K2: one-pass face sum (replaces pallas_kernels.lattice_face_sum_3d)
 
 
@@ -178,13 +271,17 @@ def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
 
 
 stiffness_lattice_3d.launches = LaunchCount()
+stiffness_lattice_3d_split.launches = LaunchCount()
 lattice_face_sum_3d.launches = LaunchCount()
 stiffness_lattice_3d_plain.calls = LaunchCount()
+stiffness_lattice_3d_split_plain.calls = LaunchCount()
 lattice_face_sum_3d_plain.calls = LaunchCount()
 _COUNTS = {
     "stiffness_lattice_3d": stiffness_lattice_3d.launches,
+    "stiffness_lattice_3d_split": stiffness_lattice_3d_split.launches,
     "lattice_face_sum_3d": lattice_face_sum_3d.launches,
     "stiffness_lattice_3d_plain": stiffness_lattice_3d_plain.calls,
+    "stiffness_lattice_3d_split_plain": stiffness_lattice_3d_split_plain.calls,
     "lattice_face_sum_3d_plain": lattice_face_sum_3d_plain.calls,
 }
 

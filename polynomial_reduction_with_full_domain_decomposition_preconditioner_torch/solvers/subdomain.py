@@ -1,32 +1,37 @@
 """Full-domain-decomposition + polynomial-reduction preconditioner.
 
 Port of the JAX package's ``solvers/subdomain.composite_dd`` for ONE
-structured shard with the matrix-free hybrid inner preconditioner
-(inner="amg") and the fixed inner FGMRES. On one shard the composite
+structured shard: the matrix-free hybrid inner preconditioner
+(inner="amg"), the assembled-diagonal stand-in ("jacobi") or plain QQt
+("none"), under a fixed inner FGMRES or FCG. On one shard the composite
 problem is the whole domain at order N, a single layer group (G=1): the
 composite operator is the SEM apply (kernel K1), the composite dssum the
 one-pass face sum with the mask fused in (kernel K2), and the outer
 residual enters the composite unchanged (the reference's restriction
 cascade feeds only ring and far groups, which one shard does not have, so
-it is not computed). Each inner FGMRES step is preconditioned by
-Chebyshev smoothing on the composite operator plus one vertex-grid
-V-cycle in >= f32.
+it is not computed). With inner="amg" each inner step is preconditioned
+by Chebyshev smoothing on the composite operator plus a vertex-grid
+correction in >= f32: one chain V-cycle, or ``vertex_iters`` PCG steps
+preconditioned by it.
 
-Sharding, the other inner preconditioners and inner_solver="fcg" raise
-NotImplementedError (later slices).
+Sharding and inner="fem-amg" raise NotImplementedError (later slices).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from ..amg.composite import vertex_q1_hierarchy
+from ..amg.composite import (load_chain_info, save_chain_info,
+                             vertex_q1_hierarchy)
 from ..amg.vcycle import cheby_smooth, chain_vcycle, pack_chain
 from ..mesh.layout import elements_to_lattice
 from ..ops import sem
 from ..ops.interp import axis_contract
 from ..ops.kernels import lattice_face_sum_3d
+from ..ops.stencil import stencil_apply
 from ..utils.gll import diff_matrix, gll_points_weights
 from .preconditioners import Preconditioner
 from . import krylov
@@ -36,6 +41,7 @@ __all__ = ["composite_dd"]
 
 def composite_dd(domain, mesh_builder, poly_reduction: int,
                  subdomain_overlap: int = 1,
+                 superdomain_overlap: int = 1,
                  num_iterations: int = 4,
                  inner: str = "amg",
                  inner_solver: str = "fgmres",
@@ -43,7 +49,10 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
                  cheby_order: int = 2,
                  ptype=None,
                  max_coarse: int = 600,
+                 far_coarsen="auto",
                  fine_mesh=None,
+                 chain_cache: str | None = None,
+                 vertex_iters: int = 0,
                  chain_info: dict | None = None) -> Preconditioner:
     """Build the composite DD + polynomial-reduction preconditioner.
 
@@ -52,22 +61,43 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     poly_reduction: order step of the level hierarchy N, N-r, ..., 1.
     subdomain_overlap: ring thickness in layers (checked against the
       slab depth, as in the reference).
-    num_iterations: fixed inner FGMRES iterations.
+    superdomain_overlap: fine layers kept beside a compressed far field;
+      one shard has no far field, so it changes nothing here.
+    num_iterations: fixed inner Krylov iterations.
+    inner: the composite solve's own preconditioner: "amg" (Chebyshev on
+      the composite operator + the vertex-grid chain), "jacobi" (the
+      assembled diagonal) or "none" (plain composite QQt).
+    inner_solver: "fgmres" or "fcg"; both run the same fixed count. FCG
+      stores no Arnoldi basis and assumes the composite operator is
+      effectively SPD.
     num_vcycles / cheby_order: hybrid V-cycle hyperparameters.
     ptype: preconditioner precision (default: the domain's dtype); the
       composite geometry, mask and weight are stored in it, the vertex
       chain in >= f32.
     max_coarse: coarsest vertex-level size for the dense solve.
+    far_coarsen: far-field z element-merge factor, "auto" or an integer.
+      One shard's composite has no far field, so "auto" and 1 are the only
+      values accepted; a larger factor raises ValueError (misaligned, as
+      in the reference, or nothing to compress).
     fine_mesh: the order-N mesh if already built (must equal
       mesh_builder(N)).
+    chain_cache: path of an npz checkpoint of the vertex chain
+      (amg/composite.save_chain_info): loaded if the file exists, else
+      written after the chain is built.
+    vertex_iters: study knob of inner="amg": the vertex problem is solved
+      by this many fixed PCG iterations preconditioned by the chain
+      V-cycle instead of one V-cycle (0, the default).
     chain_info: a prebuilt vertex chain (amg/composite.coarsen_chain_info
-      layout, e.g. the JAX package's), else built from mesh_builder(1).
+      layout, e.g. the JAX package's); takes precedence over chain_cache.
     """
-    if inner != "amg":
-        raise NotImplementedError(f"inner={inner!r}: the port has 'amg' only")
-    if inner_solver != "fgmres":
+    if inner_solver not in ("fgmres", "fcg"):
+        raise ValueError(f"inner_solver={inner_solver!r} "
+                         "(use 'fgmres' or 'fcg')")
+    if inner == "fem-amg":
         raise NotImplementedError(
-            f"inner_solver={inner_solver!r}: the port has 'fgmres' only")
+            "inner='fem-amg' (the assembled FEM hierarchy) is not ported yet")
+    if inner not in ("amg", "jacobi", "none"):
+        raise ValueError(f"inner={inner!r} (use 'amg', 'jacobi' or 'none')")
     sd = domain.sharded
     if sd.structured is None or sd.num_shards != 1:
         raise NotImplementedError("the port's composite is one structured shard")
@@ -89,6 +119,16 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
         raise ValueError(
             f"own slab ({S} layers) must cover the ring depth "
             f"({V * len(orders)})")
+    if far_coarsen != "auto":
+        Fz = int(far_coarsen)
+        if Fz > 1 and (S % Fz or (V * len(orders)) % Fz or m_last % Fz):
+            raise ValueError(
+                f"far_coarsen={Fz} must divide the slab ({S}), the ring "
+                f"extent ({V * len(orders)}) and the layer count ({m_last})")
+        if Fz > 1:
+            raise ValueError(
+                f"far_coarsen={Fz}: one shard's composite is the whole "
+                "domain and has no far field to compress")
     # one shard owns every layer, so the layer-group build of the reference
     # gives a single group: the own slab (the whole domain) at order N
     n = N + 1
@@ -106,26 +146,35 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     weight = lattice(1.0 / mesh_N.node_degree.astype(np.float64))
     D = torch.as_tensor(diff_matrix(n), dtype=dtype, device=device)
 
-    # vertex chain in >= f32 (the coarse correction must not round off)
-    if chain_info is None:
-        chain_info = vertex_q1_hierarchy(mesh_builder(1), plane_shape,
-                                         m_last, dim, max_coarse=max_coarse)
-    chain_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
-    chain = pack_chain(chain_info, dtype=chain_dtype, device=device)
+    amg = None
+    if inner == "amg":
+        # vertex chain in >= f32 (the coarse correction must not round off)
+        if chain_info is None and chain_cache is not None \
+                and os.path.exists(chain_cache):
+            chain_info = load_chain_info(chain_cache)
+        if chain_info is None:
+            chain_info = vertex_q1_hierarchy(mesh_builder(1), plane_shape,
+                                             m_last, dim,
+                                             max_coarse=max_coarse)
+            if chain_cache is not None:
+                save_chain_info(chain_cache, chain_info)
+        chain_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+        chain = pack_chain(chain_info, dtype=chain_dtype, device=device)
 
-    # trilinear vertex -> lattice factors, one dense matrix per axis (z, y,
-    # x): rows are the lattice points of m elements, columns the m + 1
-    # vertex planes
-    r_, _ = gll_points_weights(n)
-    t = (r_ + 1.0) / 2.0
-    P1 = []
-    for m in (m_last,) + plane_shape:
-        F = np.zeros((m * n, m + 1))
-        for e in range(m):
-            F[e * n:(e + 1) * n, e] = 1.0 - t
-            F[e * n:(e + 1) * n, e + 1] = t
-        P1.append(torch.as_tensor(F, device=device).to(dtype))
-    vert_shape = (m_last + 1,) + tuple(ps + 1 for ps in plane_shape)
+        # trilinear vertex -> lattice factors, one dense matrix per axis
+        # (z, y, x): rows are the lattice points of m elements, columns the
+        # m + 1 vertex planes
+        r_, _ = gll_points_weights(n)
+        t = (r_ + 1.0) / 2.0
+        P1 = []
+        for m in (m_last,) + plane_shape:
+            F = np.zeros((m * n, m + 1))
+            for e in range(m):
+                F[e * n:(e + 1) * n, e] = 1.0 - t
+                F[e * n:(e + 1) * n, e + 1] = t
+            P1.append(torch.as_tensor(F, device=device).to(dtype))
+        vert_shape = (m_last + 1,) + tuple(ps + 1 for ps in plane_shape)
+        amg = {"chain": chain, "P1": P1}
 
     def comp_operator(parts):
         return [sem.stiffness_apply_lattice(parts[0], geom, D, dim)]
@@ -148,46 +197,77 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     def A_mf(x):
         return comp_dssum(comp_operator(x), apply_mask=True)
 
-    # Chebyshev bound: lambda_max(D^-1 A) of the composite operator by 20
-    # power-iteration steps in the ptype, x 1.1 (converges from below)
-    x = [(torch.sin(torch.arange(mask.numel(), dtype=torch.float64,
-                                 device=device).to(dtype) * 0.7311)
-          .reshape(mask.shape) * mask)]
-    lam = None
-    for _ in range(20):
-        y = [comp_inv_diag[0] * A_mf(x)[0]]
-        num = krylov.tree_dot([weight * y[0]], y)
-        den = torch.clamp(krylov.tree_dot([weight * x[0]], x), min=1e-30)
-        lam = torch.sqrt(num / den)
-        x = [y[0] * (1.0 / torch.clamp(torch.sqrt(num), min=1e-30))]
-    lmax0 = lam * 1.1
+    def comp_dot2(a, b, c, d):
+        return comp_dot(a, b), comp_dot(c, d)
 
-    def restrict_to_vertex(parts):
-        Vt = parts[0] * weight
-        for d, F in enumerate(P1):
-            Vt = axis_contract(F.T, Vt, d)
-        return Vt.reshape(-1).to(chain_dtype) * chain["masks"][0]
+    if inner == "amg":
+        # Chebyshev bound: lambda_max(D^-1 A) of the composite operator by
+        # 20 power-iteration steps in the ptype, x 1.1 (converges from below)
+        x = [(torch.sin(torch.arange(mask.numel(), dtype=torch.float64,
+                                     device=device).to(dtype) * 0.7311)
+              .reshape(mask.shape) * mask)]
+        lam = None
+        for _ in range(20):
+            y = [comp_inv_diag[0] * A_mf(x)[0]]
+            num = krylov.tree_dot([weight * y[0]], y)
+            den = torch.clamp(krylov.tree_dot([weight * x[0]], x), min=1e-30)
+            lam = torch.sqrt(num / den)
+            x = [y[0] * (1.0 / torch.clamp(torch.sqrt(num), min=1e-30))]
+        lmax0 = amg["lmax0"] = lam * 1.1
 
-    def prolong_from_vertex(v):
-        Vt = v.to(dtype).reshape(vert_shape)
-        for d, F in enumerate(P1):
-            Vt = axis_contract(F, Vt, d)
-        return [Vt * mask]
+        def restrict_to_vertex(parts):
+            Vt = parts[0] * weight
+            for d, F in enumerate(P1):
+                Vt = axis_contract(F.T, Vt, d)
+            return Vt.reshape(-1).to(chain_dtype) * chain["masks"][0]
 
-    def inner_precond(rr):
-        fc = comp_dssum(rr, apply_mask=True)
-        x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, None, cheby_order)
-        for _ in range(num_vcycles):
-            r = [fc[0] - A_mf(x)[0]]
-            v = chain_vcycle(chain, restrict_to_vertex(r),
-                             cheby_order=cheby_order)
-            x = [x[0] + prolong_from_vertex(v)[0]]
-            x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, x, cheby_order)
-        return x
+        def vertex_solve(w):
+            """Coarse-grid correction on the vertex problem: one chain
+            V-cycle, or vertex_iters fixed PCG steps preconditioned by it
+            (no host reads: the guards are torch.where)."""
+            z = chain_vcycle(chain, w, cheby_order=cheby_order)
+            if vertex_iters <= 0:
+                return z
+            coefs0 = chain["levels"][0]["coefs"]
+            x, r, p, rz = torch.zeros_like(w), w, z, torch.dot(w, z)
+            for _ in range(vertex_iters):
+                Ap = stencil_apply(coefs0, p, dim)
+                alpha = rz / krylov._safe(torch.dot(p, Ap))
+                x = x + alpha * p
+                r = r - alpha * Ap
+                z = chain_vcycle(chain, r, cheby_order=cheby_order)
+                rz_new = torch.dot(r, z)
+                p = z + (rz_new / krylov._safe(rz)) * p
+                rz = rz_new
+            return x
+
+        def prolong_from_vertex(v):
+            Vt = v.to(dtype).reshape(vert_shape)
+            for d, F in enumerate(P1):
+                Vt = axis_contract(F, Vt, d)
+            return [Vt * mask]
+
+        def inner_precond(rr):
+            fc = comp_dssum(rr, apply_mask=True)
+            x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, None, cheby_order)
+            for _ in range(num_vcycles):
+                r = [fc[0] - A_mf(x)[0]]
+                v = vertex_solve(restrict_to_vertex(r))
+                x = [x[0] + prolong_from_vertex(v)[0]]
+                x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, x,
+                                 cheby_order)
+            return x
+    elif inner == "jacobi":
+        def inner_precond(rr):
+            return [comp_dssum(rr, apply_mask=True)[0] * comp_inv_diag[0]]
+    else:
+        def inner_precond(rr):
+            return comp_dssum(rr, apply_mask=True)
 
     extra = {"groups": [{"geom": geom, "mask": mask, "weight": weight,
-                         "D": D}],
-             "amg": {"chain": chain, "P1": P1, "lmax0": lmax0}}
+                         "D": D}]}
+    if amg is not None:
+        extra["amg"] = amg
 
     def build(arrays, extra_, ops):
         _, dssum_f, _, _ = ops
@@ -196,11 +276,17 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
             # STYPE -> PTYPE cast at the tree-operator boundary; with one
             # group the composite right-hand side is the residual itself
             f_comp = [r.to(dtype)]
-            res = krylov.fgmres(
-                comp_operator, inner_precond,
-                lambda rr: comp_dssum(rr, apply_mask=True),
-                comp_dot, f_comp, max_iterations=num_iterations,
-                num_vectors=num_iterations, tolerance=0.0)
+            dssum_c = lambda rr: comp_dssum(rr, apply_mask=True)
+            if inner_solver == "fcg":
+                res = krylov.fcg(
+                    comp_operator, inner_precond, dssum_c, comp_dot,
+                    comp_dot2, f_comp, max_iterations=num_iterations,
+                    tolerance=0.0)
+            else:
+                res = krylov.fgmres(
+                    comp_operator, inner_precond, dssum_c, comp_dot, f_comp,
+                    max_iterations=num_iterations,
+                    num_vectors=num_iterations, tolerance=0.0)
             z = res.u[0].to(domain.dtype)
             return (dssum_f(z, apply_mask=True, apply_weight=True),
                     res.residual_history)

@@ -116,10 +116,14 @@ def test_unported_options_raise():
     tm = tg.kershaw_mesh((2, 2, 4), 2, device="cpu")
     td = TDomain(tpartition(tm, 1), dtype=torch.float64, device="cpu")
     mk = partial(tg.kershaw_mesh, (2, 2, 4), device="cpu")
-    for kw in ({"inner": "jacobi"}, {"inner": "fem-amg"},
-               {"inner_solver": "fcg"}):
-        with pytest.raises(NotImplementedError):
-            tsub.composite_dd(td, mk, poly_reduction=1, fine_mesh=tm, **kw)
+    # the Jacobi / plain-QQt inner preconditioners and the FCG inner solver
+    # are ported (tests/test_torch_composite_variants.py); the assembled
+    # FEM hierarchy is not
+    with pytest.raises(NotImplementedError):
+        tsub.composite_dd(td, mk, poly_reduction=1, fine_mesh=tm,
+                          inner="fem-amg")
+    for kw in ({"inner": "jacobi"}, {"inner_solver": "fcg"}):
+        tsub.composite_dd(td, mk, poly_reduction=1, fine_mesh=tm, **kw)
     with pytest.raises(ValueError):
         tsub.composite_dd(td, mk, poly_reduction=1, subdomain_overlap=3,
                           fine_mesh=tm)

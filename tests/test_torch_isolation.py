@@ -50,6 +50,17 @@ _ISOLATED = textwrap.dedent("""
     res = dom.solver(method="fgmres", max_iterations=50, precond=pre)(
         dom.manufacture_rhs(u))
     assert bool(res.converged), res.residual_history
+    # this slice's modules: the preconditioners, the composite variants
+    # and the precision study (plain twins on the CPU)
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import jacobi, pmultigrid
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import stiffness_precision
+    for pre in (jacobi(dom), pmultigrid(dom, mk, poly_reduction=2),
+                composite_dd(dom, mk, poly_reduction=2, inner="jacobi",
+                             inner_solver="fcg", fine_mesh=mesh)):
+        r2 = dom.solver(method="fcg", max_iterations=200, precond=pre)(
+            dom.manufacture_rhs(u))
+        assert bool(r2.converged), r2.residual_history
+    assert len(stiffness_precision.run(16, device="cpu")) == 4
     assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
                    for k, v in sys.modules.items() if v is not None)
     print("modules", len(names), "iterations", res.iterations)
@@ -61,6 +72,9 @@ def test_port_runs_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "iterations" in out.stdout
+    # every module of the port was imported there, the new ones included
+    summary = [l for l in out.stdout.splitlines() if l.startswith("modules")]
+    assert int(summary[0].split()[1]) >= 25
 
 
 def test_no_jax_or_reference_imports_in_sources():
@@ -74,7 +88,7 @@ def test_no_jax_or_reference_imports_in_sources():
                     src = fh.read()
                 assert not pat.search(src), name
                 assert "import jax" not in src and "_tpu import" not in src, name
-    assert seen >= 18
+    assert seen >= 20
 
 
 def test_default_device_is_the_card():
@@ -108,3 +122,5 @@ def test_cpu_tensors_never_launch_kernels():
         kernels.lattice_face_sum_3d(meta, 2)
     with pytest.raises(ValueError):
         kernels.stiffness_lattice_3d(meta, [meta] * 6, 2)
+    with pytest.raises(ValueError):
+        kernels.stiffness_lattice_3d_split(meta, [meta] * 6, 8)
