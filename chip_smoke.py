@@ -6,12 +6,17 @@
 Phases, each printing JSON lines (any failure exits non-zero):
   env      torch/CUDA versions, the card, and nvidia-smi's name and power
            limit (also printed raw on a line of its own)
-  build    nvcc build of csrc/*.cu for sm_90a (seconds)
+  build    nvcc build of csrc/*.cu for sm_90a (seconds; per source the
+           most registers a kernel uses and the bytes it spills)
   kernels  every kernel against its plain PyTorch twin on the card with
            the stated tolerances: K1 and K2 in bf16, f32 and f64 at the
-           main path's lattice, at odd shapes and at the p-multigrid
-           lattices (n = 6, 4, 2); K3 (the bf16-split tensor-core apply)
-           in bf16 and f32 against its twin, against K1 and against f64
+           main path's lattice, at odd shapes (odd n with row pitches no
+           vector divides, and views at an odd element offset into a
+           larger buffer, which force scalar access) and at the
+           p-multigrid lattices (n = 6, 4, 2); K3 (the bf16-split
+           tensor-core apply) in bf16 and f32 against its twin, against
+           K1 and against f64. The 128^3 entries are timed warm (operands
+           in the L2 cache) and cold (L2 overwritten before each launch)
   study    the precision study (studies/stiffness_precision.run) at
            m = 128 and m = 512: K1 and K3 timed, K3's error against K1
   small    a Kershaw 4^3 N=3 composite-DD solve on the card vs the same
@@ -30,8 +35,12 @@ Phases, each printing JSON lines (any failure exits non-zero):
            3, 1) and by jacobi: K1 and K2 at n = 8, 6, 4, 2 at full width,
            and one p-multigrid solve under torch.profiler
 Then one {"kernels": [...]} line (each kernel variant: its launches on
-the driven paths, error, time, plain time and bound), the seconds each
-phase took and, last, the {"ok": true, "device": {...}} line.
+the driven paths, error, warm and cold time, plain time, bound and the
+share of the bound it reaches: this run's numbers only), one
+{"previous_design": ...} line (this run's warm times beside the constant
+table of the previous designs' times), the seconds each phase took and,
+last, the {"ok": true, "device": {...}}
+line.
 """
 
 import json
@@ -58,6 +67,33 @@ PEAK_BF16_TENSOR_FLOPS = 989e12
 # bit of the W intermediates, so two summation orders of the same passes
 # differ by a few 1e-6 of max (not by K1's 2e-7 of plain f32 round-off)
 K3_F32_TOL = 1e-5
+# Warm device ms of the previous designs of these kernels (one thread per
+# point for K1 and K2; K3 has had one design), as an earlier version of
+# this script timed them on the card named here (PERF.md, the kernel
+# table's "earlier time"). Constants from another run: they are printed
+# beside this run's times on the {"previous_design": ...} line only, never
+# on a "kernels" line.
+PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PREV_MS = {
+    ("stiffness_lattice_3d", (128, 128, 128)):
+        {"bfloat16": 0.0387, "float32": 0.0418, "float64": 0.0784},
+    ("stiffness_lattice_3d", (96, 96, 96)):
+        {"bfloat16": 0.0172, "float32": 0.0197, "float64": 0.0285},
+    ("stiffness_lattice_3d", (64, 64, 64)):
+        {"bfloat16": 0.0048, "float32": 0.0049, "float64": 0.0068},
+    ("stiffness_lattice_3d", (32, 32, 32)):
+        {"bfloat16": 0.0030, "float32": 0.0029, "float64": 0.0031},
+    ("lattice_face_sum_3d", (128, 128, 128)):
+        {"bfloat16": 0.0304, "float32": 0.0288, "float64": 0.0318},
+    ("lattice_face_sum_3d", (96, 96, 96)):
+        {"bfloat16": 0.0145, "float32": 0.0138, "float64": 0.0142},
+    ("lattice_face_sum_3d", (64, 64, 64)):
+        {"bfloat16": 0.0061, "float32": 0.0061, "float64": 0.0064},
+    ("lattice_face_sum_3d", (32, 32, 32)):
+        {"bfloat16": 0.0033, "float32": 0.0034, "float64": 0.0035},
+    ("stiffness_lattice_3d_split", (128, 128, 128)):
+        {"bfloat16": 0.0226, "float32": 0.0339},
+}
 
 
 def emit(obj):
@@ -71,6 +107,15 @@ def plain_calls(counts, allow=()):
                for dt, n in c.items() if (k, dt) not in allow)
 
 
+def offset_view(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a
+    larger buffer: no address of it is a multiple of a vector."""
+    buf = t.new_empty(t.numel() + offset + 8)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def add_counts(total, counts):
     for name, by_dtype in counts.items():
         slot = total.setdefault(name, {})
@@ -80,7 +125,7 @@ def add_counts(total, counts):
 
 def check_split_kernel(torch, kernels, dev, timed):
     """K3 vs its plain twin, vs K1 and vs an f64 oracle on the card."""
-    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_cold_ms, cuda_ms
     name, n = "stiffness_lattice_3d_split", 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -141,6 +186,8 @@ def check_split_kernel(torch, kernels, dev, timed):
                     "max_abs_err": err,
                     "ms": cuda_ms(lambda: kernels.stiffness_lattice_3d_split(
                         U, G, n), 20),
+                    "cold_ms": cuda_cold_ms(
+                        lambda: kernels.stiffness_lattice_3d_split(U, G, n), 20),
                     "plain_ms": cuda_ms(
                         lambda: kernels.stiffness_lattice_3d_split_plain(
                             U, G, n), 3),
@@ -153,23 +200,31 @@ def check_split_kernel(torch, kernels, dev, timed):
 
 
 def check_kernels(torch, kernels, dev):
-    """Each kernel vs its plain twin on the card; returns the timed
-    variants keyed by (kernel, dtype)."""
-    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
+    """Each kernel vs its plain twin on the card; returns the timed 128^3
+    variants keyed by (kernel, dtype) and the warm ms at the p-multigrid
+    lattices keyed by (kernel, shape, dtype)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_cold_ms, cuda_ms
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rand = lambda shape: torch.randn(shape, generator=gen, device=dev,
                                      dtype=torch.float64)
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
-    timed = {}
+    timed, level_ms = {}, {}
     # the p-multigrid level lattices of the 16^3 mesh: orders 5, 3, 1
     pmg_lattices = [((96, 96, 96), 6), ((64, 64, 64), 4), ((32, 32, 32), 2)]
-    for shape, n in [((128, 128, 128), 8), ((48, 40, 56), 8),
-                     ((12, 10, 14), 2)] + pmg_lattices:
+    # odd n: row pitches that no 16-byte vector divides; the last entry of
+    # a case is the element offset of its operands into a larger buffer
+    odd = [((21, 14, 35), 7, 0), ((9, 6, 15), 3, 0), ((10, 15, 25), 5, 0),
+           ((48, 40, 56), 8, 1), ((21, 14, 35), 7, 3)]
+    for shape, n, offset in [((128, 128, 128), 8, 0), ((48, 40, 56), 8, 0),
+                             ((12, 10, 14), 2, 0)] + odd + [
+                                 (s, m, 0) for s, m in pmg_lattices]:
         U64, G64 = rand(shape), [rand(shape) for _ in range(6)]
         for name, dt in dts.items():
             U, G = U64.to(dt), [g.to(dt) for g in G64]
+            if offset:
+                U, G = offset_view(U, offset), [offset_view(g, offset) for g in G]
             out = kernels.stiffness_lattice_3d(U, G, n)
             ref = kernels.stiffness_lattice_3d_plain(U, G, n)
             torch.cuda.synchronize()
@@ -177,6 +232,7 @@ def check_kernels(torch, kernels, dev):
             err = (out.double() - ref.double()).abs().max().item()
             line = {"phase": "kernels", "kernel": "stiffness_lattice_3d",
                     "shape": shape, "n": n, "dtype": name,
+                    "offset": offset,
                     "max_abs_err": err, "rel_err": err / scale}
             tol = {"float32": 2e-6, "float64": 1e-12, "bfloat16": 1e-2}[name]
             ok = err <= tol * scale
@@ -192,6 +248,7 @@ def check_kernels(torch, kernels, dev):
                     lambda: kernels.stiffness_lattice_3d(U, G, n), 20)
                 line["bound_ms"] = (8 * U.numel() * U.element_size()
                                     / HBM_BYTES_PER_S * 1e3)
+                level_ms["stiffness_lattice_3d", shape, name] = line["ms"]
             emit(line)
             if not ok:
                 raise AssertionError(f"stiffness_lattice_3d disagrees: {line}")
@@ -200,12 +257,15 @@ def check_kernels(torch, kernels, dev):
                 timed[("stiffness_lattice_3d", name)] = {
                     "max_abs_err": err,
                     "ms": cuda_ms(lambda: kernels.stiffness_lattice_3d(U, G, n), 20),
+                    "cold_ms": cuda_cold_ms(
+                        lambda: kernels.stiffness_lattice_3d(U, G, n), 20),
                     "plain_ms": cuda_ms(
                         lambda: kernels.stiffness_lattice_3d_plain(U, G, n), 3),
                     "bytes": 8 * npts * U.element_size(),
                     "flops": npts * (12 * n + 18),
                 }
-    for shape, n in [((128, 128, 128), 8), ((24, 16, 40), 8)] + pmg_lattices:
+    for shape, n, offset in [((128, 128, 128), 8, 0), ((24, 16, 40), 8, 0)
+                             ] + odd + [(s, m, 0) for s, m in pmg_lattices]:
         U64 = rand(shape)
         mask64 = (rand(shape) > 0).double()
         w64 = 1.0 / 2.0 ** torch.randint(0, 4, shape, generator=gen,
@@ -217,21 +277,20 @@ def check_kernels(torch, kernels, dev):
                            ("float64", torch.float64)]:
             U = U64.to(dts[name])
             mask, w = mask64.to(mwdt), w64.to(mwdt)
+            if offset:
+                U, mask, w = (offset_view(t, offset) for t in (U, mask, w))
             for kw in ({}, {"mask": mask, "weight": w}, {"mask": mask}):
                 out = kernels.lattice_face_sum_3d(U, n, **kw)
                 ref = kernels.lattice_face_sum_3d_plain(U, n, **kw)
                 torch.cuda.synchronize()
                 diff = (out.double() - ref.double()).abs()
                 err = diff.max().item()
-                if name == "bfloat16":
-                    rel = (diff / ref.double().abs().clamp(min=1.0)).max().item()
-                    ok = rel <= 0.02
-                else:
-                    rel = err
-                    ok = err == 0.0
+                rel = (diff / ref.double().abs().clamp(min=1.0)).max().item()
+                # the kernel rounds where the twin rounds, in every dtype
+                ok = err == 0.0
                 line = {"phase": "kernels", "kernel": "lattice_face_sum_3d",
                         "shape": shape, "n": n, "dtype": name,
-                        "mask_weight": sorted(kw), "max_abs_err": err,
+                        "offset": offset, "mask_weight": sorted(kw), "max_abs_err": err,
                         "rel_err": rel, "ok": ok}
                 if (shape, n) in pmg_lattices and set(kw) == {"mask"}:
                     line["ms"] = cuda_ms(
@@ -239,6 +298,7 @@ def check_kernels(torch, kernels, dev):
                     line["bound_ms"] = (
                         U.numel() * (2 * U.element_size() + mask.element_size())
                         / HBM_BYTES_PER_S * 1e3)
+                    level_ms["lattice_face_sum_3d", shape, name] = line["ms"]
                 emit(line)
                 if not ok:
                     raise AssertionError(f"lattice_face_sum_3d disagrees: {line}")
@@ -247,6 +307,8 @@ def check_kernels(torch, kernels, dev):
                     timed[("lattice_face_sum_3d", name)] = {
                         "max_abs_err": err,
                         "ms": cuda_ms(lambda: kernels.lattice_face_sum_3d(U, n, **kw), 50),
+                        "cold_ms": cuda_cold_ms(
+                            lambda: kernels.lattice_face_sum_3d(U, n, **kw), 20),
                         "plain_ms": cuda_ms(
                             lambda: kernels.lattice_face_sum_3d_plain(U, n, **kw), 3),
                         "bytes": npts * (2 * U.element_size()
@@ -254,7 +316,7 @@ def check_kernels(torch, kernels, dev):
                         "flops": npts * 13,
                     }
     check_split_kernel(torch, kernels, dev, timed)
-    return timed
+    return timed, level_ms
 
 
 def profile_solve(torch, solve, f, phase="profile", top_n=12):
@@ -462,10 +524,11 @@ def main():
     t0 = time.time()
     so = cuda_lib.build()
     cuda_lib.load()
-    emit({"phase": "build", "seconds": time.time() - t0, "library": so[-40:]})
+    emit({"phase": "build", "seconds": time.time() - t0, "library": so[-40:],
+          "ptxas": cuda_lib.resource_usage()})
     phase_done("env+build")
 
-    timed = check_kernels(torch, kernels, dev)
+    timed, level_ms = check_kernels(torch, kernels, dev)
     phase_done("kernels")
     path_counts = {}       # launches summed over every driven path
     add_counts(path_counts, run_study(torch, kernels))
@@ -580,6 +643,11 @@ def main():
         t_ops = (t["flops"] / PEAK_FLOPS[dt]
                  + t.get("tensor_flops", 0) / PEAK_BF16_TENSOR_FLOPS) * 1e3
         source, replaces = KERNEL_FILES[name]
+        # the byte bound is a device-memory bound: a cold launch under it
+        # was not cold, or was not timed
+        if t["cold_ms"] < t_bytes:
+            raise AssertionError(f"{name}[{dt}]: cold time {t['cold_ms']} ms "
+                                 f"is under its byte bound {t_bytes} ms")
         entries.append({
             "name": f"{name}[{dt}]", "route": "cuda",
             "source": f"{PKG}/csrc/{source}", "replaces": replaces,
@@ -587,7 +655,21 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": None,
+            "cold_ms": t["cold_ms"],
+            "share_of_bound": max(t_bytes, t_ops) / t["ms"],
+            "cold_share_of_bound": max(t_bytes, t_ops) / t["cold_ms"]})
+    # old against new, apart from the "kernels" line: prev_ms is a constant
+    # of this file, ms is this run's warm time of the same launch
+    now_ms = {(name, (128, 128, 128), dt): t["ms"]
+              for (name, dt), t in timed.items()}
+    now_ms.update(level_ms)
+    emit({"previous_design": {
+        "prev_card": PREV_CARD, "prev_ms_from": "PERF.md, earlier time",
+        "entries": [{"name": f"{name}[{dt}]", "shape": shape,
+                     "prev_ms": PREV_MS[name, shape][dt], "ms": ms,
+                     "speedup": PREV_MS[name, shape][dt] / ms}
+                    for (name, shape, dt), ms in sorted(now_ms.items())]}})
     print("no single PyTorch call computes any of these kernels' functions: "
           "library_ms is null", flush=True)
     emit({"phase_seconds": phase_seconds,

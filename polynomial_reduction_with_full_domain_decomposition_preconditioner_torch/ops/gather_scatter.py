@@ -9,15 +9,20 @@ arithmetic (``axes`` given, or not 3-D).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 __all__ = ["lattice_face_sum", "structured_dssum"]
 
 
+@functools.lru_cache(maxsize=None)
 def _roll_masks(M: int, n: int, dtype, device):
     """hi[X]=1 iff X is the last node of a non-final element (receives from
-    X+1); lo[X]=1 iff X is the first node of a non-initial element."""
+    X+1); lo[X]=1 iff X is the first node of a non-initial element. Kept
+    per (M, n, dtype, device): on a card a call then copies nothing from
+    the host. The callers only read them."""
     hi = np.zeros(M); hi[n - 1::n] = 1.0; hi[M - 1] = 0.0
     lo = np.zeros(M); lo[0::n] = 1.0; lo[0] = 0.0
     return (torch.as_tensor(hi, dtype=dtype, device=device),

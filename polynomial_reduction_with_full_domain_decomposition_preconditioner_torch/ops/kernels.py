@@ -16,6 +16,7 @@ show that it went through the kernels and never through a plain twin.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -73,6 +74,17 @@ def _check_lattice(name, U, n, others):
         raise ValueError(f"{name}: the input lattice must be contiguous")
 
 
+def _widest_vector(row_items: int, itemsize: int, ptrs) -> int:
+    """The most items (a power of two, at most 16 bytes' worth) that
+    one aligned vector access can move for rows of ``row_items`` items of
+    ``itemsize`` bytes behind the byte addresses ``ptrs``: the vector
+    divides the row pitch and every address. 1 means scalar access."""
+    v = max(16 // itemsize, 1)
+    while v > 1 and (row_items % v or any(p % (v * itemsize) for p in ptrs)):
+        v //= 2
+    return v
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error code {err}")
@@ -102,6 +114,84 @@ def stiffness_lattice_3d_plain(U, G, n: int):
     return out.to(U.dtype)
 
 
+class StiffnessPlan(NamedTuple):
+    """Launch of csrc/stiffness.cu: a block takes ex x ey elements in x
+    and y (one thread per (i, j) column, which moves one point per global
+    access) and walks ez elements in z."""
+    ex: int
+    ey: int
+    ez: int
+    threads: int
+    grid: tuple          # blocks in x, y, z
+    smem_bytes: int      # static shared memory of a block
+
+
+_SM_COUNT = 132                      # H100
+_STIFFNESS_MAX_THREADS = 256         # csrc/stiffness.cu kMaxThreads
+_STIFFNESS_BLOCKS_PER_SM = 2         # csrc/stiffness.cu kMinBlocks
+_STIFFNESS_MAX_EZ = 8
+
+
+def _stiffness_strip(n: int, itemsize: int) -> int:
+    """Elements per block along x (csrc/stiffness.cu Strip<Tio, N>::EX):
+    the largest power of two whose points fit in 32 (16 for f64)."""
+    ex = 1
+    while 2 * ex * n <= (16 if itemsize == 8 else 32):
+        ex *= 2
+    return ex
+
+
+def _stiffness_launch(shape, n: int, itemsize: int, ey: int, ez: int) -> StiffnessPlan:
+    """The launch that blocks of ey x ez elements in y and z give on an
+    element-aligned (Mz, My, Mx) lattice (the x-strip follows from n and
+    the dtype)."""
+    mz, my, mx = shape
+    ex = _stiffness_strip(n, itemsize)
+    grid = (-(-(mx // n) // ex), -(-(my // n) // ey), -(-(mz // n) // ez))
+    acc = 8 if itemsize == 8 else 4
+    return StiffnessPlan(ex=ex, ey=ey, ez=ez, threads=ex * n * ey * n,
+                         grid=grid,
+                         smem_bytes=((n + 4) * _STIFFNESS_MAX_THREADS
+                                     + n * (n + 1)) * acc)
+
+
+@functools.lru_cache(maxsize=None)
+def _stiffness_plan(shape, n: int, itemsize: int) -> StiffnessPlan:
+    """Block and grid of K1 for an element-aligned (Mz, My, Mx) lattice
+    (a tuple) of ``itemsize``-byte points.
+
+    The x-strip is fixed per (n, dtype) at compile time. ey fills the
+    block up to 256 threads and gives way until the grid has the two
+    blocks per SM that the kernel's register budget lets an SM hold. ez,
+    the elements a block walks in z and over which it shares its set-up
+    (D into registers), doubles for bf16 and f32 as long as it divides
+    the lattice and the grid keeps a block for every SM: 128^3 at n = 8
+    then runs as one wave of 256 blocks (f64 gains nothing from it;
+    studies/launch_plan_sweep.py times the choices)."""
+    if not 2 <= n <= 8 or any(m <= 0 or m % n for m in shape):
+        raise ValueError(f"no stiffness plan for lattice {tuple(shape)}, n={n}")
+    gey, gez = shape[1] // n, shape[0] // n
+    ex = _stiffness_strip(n, itemsize)
+
+    def blocks(ey, ez):
+        gx, gy, gz = _stiffness_launch(shape, n, itemsize, ey, ez).grid
+        return gx * gy * gz
+
+    ey = 1
+    while 2 * ey * ex * n * n <= _STIFFNESS_MAX_THREADS and 2 * ey <= gey:
+        ey *= 2
+    while ey > 1 and blocks(ey, 1) < _STIFFNESS_BLOCKS_PER_SM * _SM_COUNT:
+        ey //= 2
+    ez = 1
+    while (itemsize < 8 and ez < _STIFFNESS_MAX_EZ and gez % (2 * ez) == 0
+           and blocks(ey, 2 * ez) >= _SM_COUNT):
+        ez *= 2
+    plan = _stiffness_launch(shape, n, itemsize, ey, ez)
+    if plan.grid[1] > 65535 or plan.grid[2] > 65535:
+        raise ValueError(f"lattice {tuple(shape)} exceeds the launch grid")
+    return plan
+
+
 def stiffness_lattice_3d(U, G, n: int):
     """One-pass fused SEM stiffness apply on a (Mz, My, Mx) lattice with
     the six factor lattices G (G_rr, G_ss, G_tt, G_rs, G_rt, G_st), all
@@ -117,15 +207,19 @@ def stiffness_lattice_3d(U, G, n: int):
     if not 2 <= n <= 8:
         raise ValueError(f"stiffness_lattice_3d: n={n} outside 2..8")
     mz, my, mx = U.shape
-    if my // n > 65535 or mz // n > 65535:
-        raise ValueError("stiffness_lattice_3d: lattice exceeds the launch grid")
     out = torch.empty_like(U)
-    D = _diff(n, _acc_dtype(U.dtype), U.device)
+    if U.numel() == 0:
+        return out
+    plan = _stiffness_plan(tuple(U.shape), n, U.element_size())
+    # the host's f64 GLL table; the launch casts it to the accumulation
+    # type and hands it to the kernel by value
+    D = diff_matrix(n)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
         err = cuda_lib.load().prfdd_stiffness_3d(
             _CODE[U.dtype], n, U.data_ptr(), *(g.data_ptr() for g in G),
-            D.data_ptr(), out.data_ptr(), mz, my, mx, stream)
+            D.ctypes.data, out.data_ptr(), mz, my, mx,
+            plan.ex, plan.ey, plan.ez, stream)
     _raise_on(err, "stiffness_lattice_3d")
     stiffness_lattice_3d.launches.add(U.dtype)
     return out
@@ -239,6 +333,79 @@ def lattice_face_sum_3d_plain(U, n: int, mask=None, weight=None):
     return R.to(U.dtype)
 
 
+class FaceSumPlan(NamedTuple):
+    """Launch of csrc/face_sum.cu: a thread owns ``vec`` x-contiguous
+    points, a block tx threads along x times by rows of one plane."""
+    vec: int             # points per thread
+    tx: int              # threads along x
+    by: int              # rows (y) per block
+    threads: int
+    grid: tuple          # blocks in x, y, z
+
+
+_FACE_SUM_THREADS = 128
+_FACE_SUM_MIN_THREADS = 1 << 16  # a quarter of what the card holds at once
+_FACE_SUM_MAX_ROWS = 16
+
+
+def _face_sum_plan(shape, n: int, itemsize: int, mw_itemsize: int,
+                   ptrs=(), mw_ptrs=()) -> FaceSumPlan:
+    """Vector width, block and grid of K2 for a (Mz, My, Mx) lattice of
+    ``itemsize``-byte points whose mask and weight have ``mw_itemsize``
+    bytes; ``ptrs`` are the byte addresses of the field and the output,
+    ``mw_ptrs`` those of mask and weight.
+
+    The vector is the widest (16 bytes of the field at most) that divides
+    the row and every address, narrowed on a small lattice until the grid
+    has 65,536 threads (32^3 then runs one point a thread: what counts
+    there is the length of a thread's chain, not the instructions). A
+    block takes a whole row (up to 128 vectors of it) and as many
+    consecutive rows of one plane, a power of two up to 16, as give about
+    128 threads (neighbouring rows then share the block's L1), fewer
+    while the grid has no block for every SM."""
+    # only an address's remainder by the widest vector matters
+    return _face_sum_plan_of(tuple(shape), n, itemsize, mw_itemsize,
+                             tuple(p % 16 for p in ptrs),
+                             tuple(p % 16 for p in mw_ptrs))
+
+
+def _face_sum_launch(shape, vec: int, by: int) -> FaceSumPlan:
+    """The launch that ``vec`` points a thread and ``by`` rows a block
+    give on a (Mz, My, Mx) lattice."""
+    mz, my, mx = shape
+    tx = min(mx // vec, _FACE_SUM_THREADS)
+    return FaceSumPlan(vec=vec, tx=tx, by=by, threads=tx * by,
+                       grid=(-(-mx // (tx * vec)), -(-my // by), mz))
+
+
+@functools.lru_cache(maxsize=None)
+def _face_sum_plan_of(shape, n, itemsize, mw_itemsize, ptrs, mw_ptrs):
+    mz, my, mx = shape
+    if n < 1 or min(shape) <= 0:
+        raise ValueError(f"no face-sum plan for lattice {tuple(shape)}, n={n}")
+    vec = _widest_vector(mx, itemsize, ptrs)
+    while vec > 1 and any(p % min(16, vec * mw_itemsize) for p in mw_ptrs):
+        vec //= 2
+    while vec > 1 and mz * my * mx // vec < _FACE_SUM_MIN_THREADS:
+        vec //= 2
+
+    def blocks(by):
+        gx, gy, gz = _face_sum_launch(shape, vec, by).grid
+        return gx * gy * gz
+
+    tx = min(mx // vec, _FACE_SUM_THREADS)
+    by = 1
+    while (2 * by * tx <= _FACE_SUM_THREADS and 2 * by <= _FACE_SUM_MAX_ROWS
+           and 2 * by <= my):
+        by *= 2
+    while by > 1 and blocks(by) < _SM_COUNT:
+        by //= 2
+    plan = _face_sum_launch(shape, vec, by)
+    if plan.grid[1] > 65535 or plan.grid[2] > 65535:
+        raise ValueError(f"lattice {tuple(shape)} exceeds the launch grid")
+    return plan
+
+
 def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
     """One-pass fused face summation on a (Mz, My, Mx) lattice, with the
     optional same-shape ``weight`` and ``mask`` multiplied in before the
@@ -255,16 +422,17 @@ def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
     if U.numel() == 0:
         return out
     mz, my, mx = U.shape
-    if my > 65535 or mz > 65535:
-        raise ValueError("lattice_face_sum_3d: lattice exceeds the launch grid")
-    mw_code = _CODE[mw[0].dtype] if mw else _CODE[U.dtype]
+    mw_dtype = mw[0].dtype if mw else U.dtype
+    plan = _face_sum_plan(U.shape, n, U.element_size(), mw_dtype.itemsize,
+                          (U.data_ptr(), out.data_ptr()),
+                          [t.data_ptr() for t in mw])
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
         err = cuda_lib.load().prfdd_face_sum_3d(
-            _CODE[U.dtype], mw_code, n, U.data_ptr(),
+            _CODE[U.dtype], _CODE[mw_dtype], n, U.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if weight is None else weight.data_ptr(),
-            out.data_ptr(), mz, my, mx, stream)
+            out.data_ptr(), mz, my, mx, plan.vec, plan.tx, plan.by, stream)
     _raise_on(err, "lattice_face_sum_3d")
     lattice_face_sum_3d.launches.add(U.dtype)
     return out

@@ -41,6 +41,40 @@ def test_plain_bitwise_vs_rolls_and_pallas(interpret_pallas, shape, n):
     assert np.array_equal(out, pallas)
 
 
+def _offset_view(a, offset):
+    """A contiguous tensor of ``a``'s values that starts ``offset`` items
+    into a larger buffer (no address of it is vector-aligned)."""
+    buf = torch.empty(a.size + offset + 8, dtype=torch.as_tensor(a).dtype)
+    view = buf[offset:offset + a.size].view(a.shape)
+    view.copy_(torch.as_tensor(a))
+    return view
+
+
+# odd n: row pitches that no 16-byte vector divides (the kernel's scalar
+# path on the card is held to this twin)
+_ODD_SHAPES = [((21, 14, 35), 7), ((9, 6, 15), 3), ((10, 15, 25), 5)]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape,n", _ODD_SHAPES)
+def test_plain_bitwise_vs_rolls_odd_shapes_and_offset_views(shape, n, dtype, offset):
+    rng = np.random.default_rng(5)
+    U = rng.standard_normal(shape).astype(dtype)
+    mask = rng.integers(0, 2, shape).astype(dtype)
+    w = (1.0 / 2.0 ** rng.integers(0, 4, shape)).astype(dtype)
+    base = jgs.lattice_face_sum(jnp.asarray(U), n, axes=(2, 1, 0))
+    Ut, mt, wt = (_offset_view(a, offset) for a in (U, mask, w))
+    assert Ut.is_contiguous() and Ut.data_ptr() % 16 == (offset * U.itemsize) % 16
+    plain = kernels.lattice_face_sum_3d_plain
+    assert np.array_equal(plain(Ut, n).numpy(), np.asarray(base))
+    assert np.array_equal(plain(Ut, n, mask=mt, weight=wt).numpy(),
+                          np.asarray(base * w * mask))
+    # on the CPU the wrapper is the twin
+    assert np.array_equal(kernels.lattice_face_sum_3d(Ut, n, mask=mt).numpy(),
+                          np.asarray(base * mask))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_fused_mask_weight_bitwise(interpret_pallas, dtype):
     rng = np.random.default_rng(2)

@@ -34,6 +34,35 @@ def test_plain_matches_reference_f64(n, shape):
     assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-12
 
 
+def _offset_view(a, offset):
+    """A contiguous tensor of ``a``'s values that starts ``offset`` items
+    into a larger buffer (no address of it is vector-aligned)."""
+    buf = torch.empty(a.size + offset + 8, dtype=torch.float64)
+    view = buf[offset:offset + a.size].view(a.shape)
+    view.copy_(torch.as_tensor(a))
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n,shape", [(7, (21, 14, 35)), (3, (9, 6, 15)),
+                                     (5, (10, 15, 25))])
+def test_plain_matches_reference_f64_odd_shapes_and_offset_views(n, shape, offset):
+    # odd n with row pitches no vector divides, and operands at an odd
+    # item offset into a larger buffer: the shapes at which the card's
+    # scalar path is held to this twin
+    U, G = _problem(n, shape, seed=7)
+    ref = np.asarray(jsem.stiffness_apply_lattice(
+        jnp.asarray(U), tuple(jnp.asarray(g) for g in G),
+        jnp.asarray(diff_matrix(n)), 3))
+    Ut = _offset_view(U, offset)
+    Gt = [_offset_view(g, offset) for g in G]
+    assert Ut.is_contiguous() and Ut.data_ptr() % 16 == (8 * offset) % 16
+    out = kernels.stiffness_lattice_3d_plain(Ut, Gt, n).numpy()
+    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-12
+    assert torch.equal(kernels.stiffness_lattice_3d(Ut, Gt, n),
+                       kernels.stiffness_lattice_3d_plain(Ut, Gt, n))
+
+
 def test_sem_apply_dispatches_to_plain_on_cpu():
     n, shape = 4, (8, 12, 8)
     U, G = _problem(n, shape, seed=1)
