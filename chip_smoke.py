@@ -15,10 +15,15 @@ Phases, each printing JSON lines (any failure exits non-zero):
            larger buffer, which force scalar access) and at the
            p-multigrid lattices (n = 6, 4, 2); K3 (the bf16-split
            tensor-core apply) in bf16 and f32 against its twin, against
-           K1 and against f64. The 128^3 entries are timed warm (operands
+           K1 and against f64 at n = 8, 4 and 2: a u nonzero in one point
+           (the fragment layout), lattices aligned to 8-point tiles,
+           ragged ones and views aligned to a point pair only (its
+           narrowest vector), with its launch plan's blocks per SM against
+           the card's count. The 128^3 entries are timed warm (operands
            in the L2 cache) and cold (L2 overwritten before each launch)
   study    the precision study (studies/stiffness_precision.run) at
-           m = 128 and m = 512: K1 and K3 timed, K3's error against K1
+           m = 128 and m = 512: K1 and K3 timed, K3's error against K1;
+           then K3 and K1 timed cold at 512^3
   small    a Kershaw 4^3 N=3 composite-DD solve on the card vs the same
            solve on the CPU (plain twins): same iterations and history
   variants the same comparison on Kershaw 4^3 N=5 for p-multigrid and for
@@ -68,11 +73,11 @@ PEAK_BF16_TENSOR_FLOPS = 989e12
 # differ by a few 1e-6 of max (not by K1's 2e-7 of plain f32 round-off)
 K3_F32_TOL = 1e-5
 # Warm device ms of the previous designs of these kernels (one thread per
-# point for K1 and K2; K3 has had one design), as an earlier version of
-# this script timed them on the card named here (PERF.md, the kernel
-# table's "earlier time"). Constants from another run: they are printed
-# beside this run's times on the {"previous_design": ...} line only, never
-# on a "kernels" line.
+# point for K1 and K2, one block of 4 warps per element for K3; K3 at 512^3
+# as the study timed it), as an earlier version of this script timed them
+# on the card named here (PERF.md, the kernel table's "earlier time").
+# Constants from another run: they are printed beside this run's times on
+# the {"previous_design": ...} line only, never on a "kernels" line.
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_MS = {
     ("stiffness_lattice_3d", (128, 128, 128)):
@@ -92,7 +97,9 @@ PREV_MS = {
     ("lattice_face_sum_3d", (32, 32, 32)):
         {"bfloat16": 0.0033, "float32": 0.0034, "float64": 0.0035},
     ("stiffness_lattice_3d_split", (128, 128, 128)):
-        {"bfloat16": 0.0226, "float32": 0.0339},
+        {"bfloat16": 0.0228, "float32": 0.0331},
+    ("stiffness_lattice_3d_split", (512, 512, 512)):
+        {"bfloat16": 1.411, "float32": 1.839},
 }
 
 
@@ -124,9 +131,11 @@ def add_counts(total, counts):
 
 
 def check_split_kernel(torch, kernels, dev, timed):
-    """K3 vs its plain twin, vs K1 and vs an f64 oracle on the card."""
+    """K3 vs its plain twin, vs K1 and vs an f64 oracle on the card, at the
+    orders it takes (n = 8, 4, 2), on aligned and ragged lattices and on
+    views that force its narrowest vector; K3 at 128^3 timed."""
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_cold_ms, cuda_ms
-    name, n = "stiffness_lattice_3d_split", 8
+    name = "stiffness_lattice_3d_split"
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     rand = lambda shape: torch.randn(shape, generator=gen, device=dev,
@@ -135,29 +144,44 @@ def check_split_kernel(torch, kernels, dev, timed):
     tol_twin = {"float32": K3_F32_TOL, "bfloat16": 1e-2}
     tol_k1 = {"float32": 1e-4, "bfloat16": 1e-2}
     # the fragment layout first: a u that is nonzero in one point, where a
-    # wrong lane <-> element map shows as an O(1) error
-    shape = (16, 8, 24)
-    G64 = [rand(shape) for _ in range(6)]
-    for dt_name, dt in dts.items():
-        worst = 0.0
-        for pt in [(0, 0, 0), (3, 5, 17), (15, 7, 23), (9, 2, 8)]:
-            U = torch.zeros(shape, device=dev, dtype=dt)
-            U[pt] = 1.0
-            G = [g.to(dt) for g in G64]
-            out = kernels.stiffness_lattice_3d_split(U, G, n).double()
-            ref = kernels.stiffness_lattice_3d_split_plain(U, G, n).double()
-            worst = max(worst, ((out - ref).abs().max()
-                                / ref.abs().max()).item())
-        line = {"phase": "kernels", "kernel": name, "shape": shape, "n": n,
-                "dtype": dt_name, "input": "one nonzero point",
-                "rel_err": worst, "ok": worst <= tol_twin[dt_name]}
-        emit(line)
-        if not line["ok"]:
-            raise AssertionError(f"{name}: fragment layout is wrong: {line}")
-    for shape in [(16, 8, 24), (48, 40, 56), (128, 128, 128)]:
+    # wrong lane <-> element map shows as an O(1) error; the ragged
+    # lattices put points in tiles that the lattice cuts in x, y and z
+    for shape, n in [((16, 8, 24), 8), ((12, 20, 28), 4), ((6, 10, 14), 2)]:
+        G64 = [rand(shape) for _ in range(6)]
+        last = tuple(m - 1 for m in shape)
+        pts = [(0, 0, 0), last, (last[0], 0, last[2]), (0, last[1], 3),
+               (shape[0] // 2, shape[1] // 3 + 1, shape[2] // 2 + 1)]
+        for dt_name, dt in dts.items():
+            worst = 0.0
+            for pt in pts:
+                U = torch.zeros(shape, device=dev, dtype=dt)
+                U[pt] = 1.0
+                G = [g.to(dt) for g in G64]
+                out = kernels.stiffness_lattice_3d_split(U, G, n).double()
+                ref = kernels.stiffness_lattice_3d_split_plain(U, G, n).double()
+                worst = max(worst, ((out - ref).abs().max()
+                                    / ref.abs().max()).item())
+            line = {"phase": "kernels", "kernel": name, "shape": shape, "n": n,
+                    "dtype": dt_name, "input": "one nonzero point",
+                    "points": pts, "rel_err": worst,
+                    "ok": worst <= tol_twin[dt_name]}
+            emit(line)
+            if not line["ok"]:
+                raise AssertionError(f"{name}: fragment layout is wrong: {line}")
+    # aligned, ragged (a lattice aligned to elements, not to 8-point tiles)
+    # and offset views aligned to a point pair but not to 16 bytes (the
+    # narrowest vector); the last entry of a case is the element offset
+    for shape, n, offset in [((16, 8, 24), 8, 0), ((48, 40, 56), 8, 0),
+                             ((128, 128, 128), 8, 0), ((32, 32, 64), 4, 0),
+                             ((12, 20, 28), 4, 0), ((32, 32, 32), 2, 0),
+                             ((6, 10, 14), 2, 0), ((128, 128, 128), 4, 0),
+                             ((128, 128, 128), 2, 0), ((48, 40, 56), 8, 2),
+                             ((12, 20, 28), 4, 2), ((6, 10, 14), 2, 2)]:
         U64, G64 = rand(shape), [rand(shape) for _ in range(6)]
         for dt_name, dt in dts.items():
             U, G = U64.to(dt), [g.to(dt) for g in G64]
+            if offset:
+                U, G = offset_view(U, offset), [offset_view(g, offset) for g in G]
             out = kernels.stiffness_lattice_3d_split(U, G, n)
             ref = kernels.stiffness_lattice_3d_split_plain(U, G, n)
             k1 = kernels.stiffness_lattice_3d(U, G, n)
@@ -172,20 +196,34 @@ def check_split_kernel(torch, kernels, dev, timed):
                 / oracle.abs().max().item()
             ok = (err <= tol_twin[dt_name] * scale and e_k1 <= tol_k1[dt_name]
                   and (dt_name != "bfloat16" or e64 <= 0.05))
+            plan = kernels._split_plan(U.shape, n, U.element_size(),
+                                       [t.data_ptr() for t in (U, *G, out)])
             line = {"phase": "kernels", "kernel": name, "shape": shape,
-                    "n": n, "dtype": dt_name, "max_abs_err": err,
+                    "n": n, "dtype": dt_name, "offset": offset,
+                    "vec": plan.vec, "max_abs_err": err,
                     "rel_err": err / scale, "rel_err_vs_k1": e_k1,
                     "rel_err_vs_f64": e64, "ok": ok}
+            if shape == (128, 128, 128):
+                # the plan's model of the blocks an SM holds against the
+                # card's own count (the grid assumes all of them resident)
+                card = kernels.split_blocks_per_sm(dt, plan)
+                model = kernels._split_resident(U.element_size(), plan.tx,
+                                                plan.stages)
+                line.update(tx=plan.tx, stages=plan.stages,
+                            blocks=plan.blocks, blocks_per_sm=card,
+                            model_blocks_per_sm=model)
+                ok = line["ok"] = ok and card >= model
+                line["ms"] = cuda_ms(
+                    lambda: kernels.stiffness_lattice_3d_split(U, G, n), 20)
             emit(line)
             if not ok:
                 raise AssertionError(f"{name} disagrees: {line}")
-            if shape == (128, 128, 128):
+            if shape == (128, 128, 128) and n == 8:
                 npts = U.numel()
                 passes = 10 if dt_name == "bfloat16" else 12
                 timed[(name, dt_name)] = {
                     "max_abs_err": err,
-                    "ms": cuda_ms(lambda: kernels.stiffness_lattice_3d_split(
-                        U, G, n), 20),
+                    "ms": line["ms"],
                     "cold_ms": cuda_cold_ms(
                         lambda: kernels.stiffness_lattice_3d_split(U, G, n), 20),
                     "plain_ms": cuda_ms(
@@ -399,10 +437,13 @@ def card_vs_cpu(torch, kernels, dev, phase, label, N, make_precond, method,
 
 
 def run_study(torch, kernels):
-    """The precision study on the card at m = 128 and m = 512; returns its
-    launch counts (K3's path)."""
+    """The precision study on the card at m = 128 and m = 512, then K3 and
+    K1 timed cold at 512^3 on the study's inputs; returns its launch
+    counts (K3's path) and K3's warm 512^3 times by dtype."""
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import stiffness_precision
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_cold_ms
     kernels.reset_counts()
+    warm_512 = {}
     for m in (128, 512):
         for row in stiffness_precision.run(m):
             emit({"phase": "study", **row})
@@ -410,6 +451,25 @@ def run_study(torch, kernels):
             if not (row["ms"] > 0 and row["rel_err_vs_k1"] <= tol
                     and row["rel_err_vs_f64"] <= 0.05):
                 raise AssertionError(f"study row failed its checks: {row}")
+            if m == 512 and row["kernel"].startswith("K3"):
+                warm_512[row["dtype"]] = row["ms"]
+    m, n = 512, stiffness_precision.N
+    for dt in (torch.bfloat16, torch.float32):
+        U, G = stiffness_precision.make_inputs(m, dt, torch.device("cuda"))
+        bound = 8 * U.numel() * U.element_size() / HBM_BYTES_PER_S * 1e3
+        dt_name = str(dt).replace("torch.", "")
+        line = {"phase": "study", "shape": (m, m, m), "dtype": dt_name,
+                "timing": "cold", "bound_ms": bound}
+        for label, fn in (("K3", kernels.stiffness_lattice_3d_split),
+                          ("K1", kernels.stiffness_lattice_3d)):
+            cold = cuda_cold_ms(lambda: fn(U, G, n), 5)
+            line[f"{label}_cold_ms"] = cold
+            line[f"{label}_cold_share_of_bound"] = bound / cold
+        line["K3_warm_ms"] = warm_512[dt_name]
+        emit(line)
+        if line["K3_cold_ms"] < bound:
+            raise AssertionError(f"K3 cold time under its byte bound: {line}")
+        del U, G
     counts = kernels.counts()
     # the only plain version the study runs is its f64 oracle
     stray = plain_calls(counts, allow={("stiffness_lattice_3d_plain",
@@ -418,7 +478,7 @@ def run_study(torch, kernels):
     if stray or not all(counts["stiffness_lattice_3d_split"].get(dt, 0) > 0
                         for dt in ("bfloat16", "float32")):
         raise AssertionError(f"the study did not run on the kernels: {counts}")
-    return counts
+    return counts, warm_512
 
 
 PMG_DAMPING = 0.5
@@ -531,7 +591,8 @@ def main():
     timed, level_ms = check_kernels(torch, kernels, dev)
     phase_done("kernels")
     path_counts = {}       # launches summed over every driven path
-    add_counts(path_counts, run_study(torch, kernels))
+    study_counts, study_512 = run_study(torch, kernels)
+    add_counts(path_counts, study_counts)
     phase_done("study")
     add_counts(path_counts, card_vs_cpu(
         torch, kernels, dev, "small", "composite_dd(inner=amg)", 3,
@@ -664,6 +725,8 @@ def main():
     now_ms = {(name, (128, 128, 128), dt): t["ms"]
               for (name, dt), t in timed.items()}
     now_ms.update(level_ms)
+    now_ms.update({("stiffness_lattice_3d_split", (512, 512, 512), dt): ms
+                   for dt, ms in study_512.items()})
     emit({"previous_design": {
         "prev_card": PREV_CARD, "prev_ms_from": "PERF.md, earlier time",
         "entries": [{"name": f"{name}[{dt}]", "shape": shape,

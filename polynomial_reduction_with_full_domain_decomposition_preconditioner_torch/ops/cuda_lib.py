@@ -106,12 +106,16 @@ def load() -> ctypes.CDLL:
     """The loaded library with every entry's argument types declared."""
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # the last ints of these two are the launch plan (ops/kernels.py)
+    # the last ints of these three are the launch plan (ops/kernels.py)
     lib.prfdd_stiffness_3d.argtypes = ([i32, i32] + [vp] * 9 + [i64] * 3
                                        + [i32] * 3 + [vp])
     lib.prfdd_stiffness_3d.restype = i32
-    lib.prfdd_stiffness_split_3d.argtypes = [i32, i32] + [vp] * 9 + [i64] * 3 + [vp]
+    lib.prfdd_stiffness_split_3d.argtypes = ([i32, i32] + [vp] * 9 + [i64] * 3
+                                             + [i32] * 4 + [vp])
     lib.prfdd_stiffness_split_3d.restype = i32
+    lib.prfdd_stiffness_split_blocks_per_sm.argtypes = ([i32] * 4
+                                                        + [ctypes.POINTER(i32)])
+    lib.prfdd_stiffness_split_blocks_per_sm.restype = i32
     lib.prfdd_face_sum_3d.argtypes = ([i32, i32, i32] + [vp] * 4 + [i64] * 3
                                       + [i32] * 3 + [vp])
     lib.prfdd_face_sum_3d.restype = i32

@@ -15,6 +15,7 @@ show that it went through the kernels and never through a plain twin.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -281,10 +282,122 @@ def stiffness_lattice_3d_split_plain(U, G, n: int):
     return out.to(U.dtype)
 
 
+class SplitPlan(NamedTuple):
+    """Launch of csrc/stiffness_split.cu: one warp per 8^3 tile, a block
+    takes a super-tile of ``tx`` x-adjacent tiles and walks the super-tiles
+    with the grid's stride, ``stages`` of them staged at once in dynamic
+    shared memory by vectors of ``vec`` points."""
+    vec: int             # points a global access (a pair at least)
+    tx: int              # tiles (warps) a block
+    stages: int          # shared buffers: stages - 1 super-tiles in flight
+    threads: int
+    blocks: int          # 1-D grid
+    supertiles: tuple    # super-tiles in x, y, z
+    smem_bytes: int      # dynamic shared memory of a block
+    opt_in: bool         # above 48 KB: the kernel's attribute is raised
+
+
+SPLIT_ORDERS = (2, 4, 8)       # n with an 8 x 8 block-diagonal kron(I, D_n)
+_SPLIT_TILE = 8
+_SPLIT_LATTICES = 7
+_SPLIT_MAX_TX = 8              # csrc/stiffness_split.cu kMaxThreads / 32
+_SPLIT_ROW_BYTES = 64          # a super-tile row of two whole 32-byte sectors
+_SPLIT_REGS = 128              # __launch_bounds__(256, 2)
+_SPLIT_L2_INPUT_BYTES = 40 << 20   # inputs that fit in the H100's 50 MB L2
+_SM_SHARED = 233_472           # H100: shared memory of an SM
+_SM_BLOCK_RESERVED = 1024      # shared memory CUDA reserves per resident block
+_SM_THREADS = 2048
+_SM_BLOCKS = 32
+_SM_REGS = 65_536
+MAX_SHARED_BLOCK = 232_448     # a block's most, with the opt-in
+MAX_SHARED_STATIC = 48 * 1024  # a block's most without it
+
+
+def _split_resident(itemsize: int, tx: int, stages: int) -> int:
+    """Blocks of ``tx`` warps and ``stages`` buffers that one SM holds at
+    once, by the card's limits on shared memory (a block's own and what
+    CUDA reserves for it), threads, blocks and registers."""
+    threads = 32 * tx
+    smem = stages * _SPLIT_LATTICES * tx * _SPLIT_TILE ** 3 * itemsize
+    return min(_SM_SHARED // (smem + _SM_BLOCK_RESERVED),
+               _SM_THREADS // threads, _SM_BLOCKS,
+               _SM_REGS // (threads * _SPLIT_REGS))
+
+
+def _split_launch(shape, itemsize: int, vec: int, tx: int, stages: int,
+                  per_sm: int | None = None) -> SplitPlan:
+    """The launch that ``tx`` tiles a block and ``stages`` buffers give on
+    a (Mz, My, Mx) lattice with ``per_sm`` blocks an SM (by default all
+    that fit): one block for each of them, evened out so that every block
+    walks the same number of super-tiles (give or take one)."""
+    mz, my, mx = shape
+    t = _SPLIT_TILE
+    sup = (-(-mx // (tx * t)), -(-my // t), -(-mz // t))
+    total = sup[0] * sup[1] * sup[2]
+    threads = 32 * tx
+    smem = stages * _SPLIT_LATTICES * tx * t ** 3 * itemsize
+    resident = _split_resident(itemsize, tx, stages)
+    per_sm = resident if per_sm is None else min(per_sm, resident)
+    walk = -(-total // max(per_sm * _SM_COUNT, 1))
+    blocks = -(-total // walk)
+    return SplitPlan(vec=vec, tx=tx, stages=stages, threads=threads,
+                     blocks=blocks, supertiles=sup, smem_bytes=smem,
+                     opt_in=smem > MAX_SHARED_STATIC)
+
+
+def _split_plan(shape, n: int, itemsize: int, ptrs=()) -> SplitPlan:
+    """Vector width, tiles a block, stages and grid of K3 for an
+    element-aligned (Mz, My, Mx) lattice of ``itemsize``-byte points
+    (bf16 or f32) behind the byte addresses ``ptrs`` (the seven operands
+    and the output).
+
+    The vector is the widest (16 bytes at most) that divides the row and
+    every address; a point pair at least, or the lattice is refused. Then
+    one of two launches, after studies/launch_plan_sweep.py:
+    - the seven inputs fit in the L2 (bf16 at 128^3): the time is set by
+      how many tiles an SM works on at once, not by the device memory, so
+      a block takes 2 tiles, keeps 3 stages (two super-tiles in flight)
+      and every block the card holds is launched;
+    - else device memory sets it, and its pages are read best in long
+      runs by few streams: a block takes as many tiles as make super-tile
+      rows of 64 bytes, two whole sectors (4 in bf16, 2 in f32), 2 stages,
+      and each SM runs 2 blocks.
+    Fewer tiles a block where the lattice is narrower."""
+    return _split_plan_of(tuple(shape), n, itemsize,
+                          tuple(p % 16 for p in ptrs))
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan_of(shape, n, itemsize, ptrs):
+    if (n not in SPLIT_ORDERS or itemsize not in (2, 4) or len(shape) != 3
+            or any(m <= 0 or m % n for m in shape)):
+        raise ValueError(f"no bf16-split stiffness plan for lattice "
+                         f"{tuple(shape)}, n={n}, {itemsize}-byte points")
+    if max(shape) > 2 ** 31 - 1:
+        raise ValueError(f"lattice {tuple(shape)} exceeds the kernel's indices")
+    mz, my, mx = shape
+    vec = _widest_vector(mx, itemsize, ptrs)
+    if vec < 2:
+        raise ValueError("lattices must be aligned to a point pair")
+    tiles_x = -(-mx // _SPLIT_TILE)
+    if _SPLIT_LATTICES * mz * my * mx * itemsize <= _SPLIT_L2_INPUT_BYTES:
+        tx, stages, per_sm = 2, 3, None
+    else:
+        tx, stages, per_sm = _SPLIT_ROW_BYTES // (_SPLIT_TILE * itemsize), 2, 2
+    while tx > 1 and tx // 2 >= tiles_x:
+        tx //= 2
+    plan = _split_launch(shape, itemsize, vec, tx, stages, per_sm)
+    if plan.supertiles[0] * plan.supertiles[1] * plan.supertiles[2] > 2 ** 31 - 1:
+        raise ValueError(f"lattice {tuple(shape)} exceeds the kernel's indices")
+    return plan
+
+
 def stiffness_lattice_3d_split(U, G, n: int):
     """The bf16-split tensor-core stiffness apply on a (Mz, My, Mx)
-    lattice, bf16 or f32 I/O. The kernel takes n = 8 on any element-aligned
-    lattice; another n on a CUDA tensor raises ValueError."""
+    lattice, bf16 or f32 I/O. The kernel takes n = 2, 4 and 8 (the orders
+    whose elements tile the 8-wide contraction) on any element-aligned
+    lattice whose operands are aligned to a point pair; another n on a
+    CUDA tensor raises ValueError."""
     if U.device.type == "cpu":
         return stiffness_lattice_3d_split_plain(U, G, n)
     name = "stiffness_lattice_3d_split"
@@ -295,24 +408,38 @@ def stiffness_lattice_3d_split(U, G, n: int):
         raise TypeError(f"{name}: bf16 or f32 I/O, got {U.dtype}")
     if any(g.dtype != U.dtype for g in G):
         raise TypeError(f"{name}: factors must have U's dtype")
-    if n != 8:
-        raise ValueError(f"{name}: the kernel contracts K = 8 (n = 8), got n={n}")
-    mz, my, mx = U.shape
-    if my // n > 65535 or mz // n > 65535:
-        raise ValueError(f"{name}: lattice exceeds the launch grid")
+    if n not in SPLIT_ORDERS:
+        raise ValueError(f"{name}: the kernel contracts K = 8 with "
+                         f"kron(I, D_n), n in {SPLIT_ORDERS}; got n={n}")
     out = torch.empty_like(U)
-    # the kernel moves point pairs (8 B in f32, 4 B in bf16)
-    if any(t.data_ptr() % (2 * U.element_size()) for t in (U, out, *G)):
-        raise ValueError(f"{name}: lattices must be aligned to a point pair")
-    D = _diff(n, torch.float32, U.device)
+    if U.numel() == 0:
+        return out
+    mz, my, mx = U.shape
+    ptrs = [t.data_ptr() for t in (U, *G, out)]
+    plan = _split_plan(U.shape, n, U.element_size(), ptrs)
+    # the host's f64 GLL table; the launch lays it out as kron(I_{8/n}, D)
+    # in f32 and hands it to the kernel by value
+    D = diff_matrix(n)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
         err = cuda_lib.load().prfdd_stiffness_split_3d(
-            _CODE[U.dtype], n, U.data_ptr(), *(g.data_ptr() for g in G),
-            D.data_ptr(), out.data_ptr(), mz, my, mx, stream)
+            _CODE[U.dtype], n, *ptrs[:7], D.ctypes.data, ptrs[7],
+            mz, my, mx, plan.vec * U.element_size(), plan.tx, plan.stages,
+            plan.blocks, stream)
     _raise_on(err, name)
     stiffness_lattice_3d_split.launches.add(U.dtype)
     return out
+
+
+def split_blocks_per_sm(dtype, plan: SplitPlan) -> int:
+    """The card's own count of the blocks of ``plan`` (bf16 or f32 I/O)
+    that one SM of the current device holds at once: what
+    ``_split_resident`` models."""
+    per_sm = ctypes.c_int(0)
+    _raise_on(cuda_lib.load().prfdd_stiffness_split_blocks_per_sm(
+        _CODE[dtype], plan.vec * dtype.itemsize, plan.tx, plan.stages,
+        ctypes.byref(per_sm)), "split_blocks_per_sm")
+    return per_sm.value
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
-"""Sweep of the launch plans of K1 and K2: what the rules of
-``ops/kernels._stiffness_plan`` and ``_face_sum_plan`` were chosen from.
+"""Sweep of the launch plans of K1, K2 and K3: what the rules of
+``ops/kernels._stiffness_plan``, ``_face_sum_plan`` and ``_split_plan``
+were chosen from.
 
 For K1 (``stiffness_lattice_3d``) every block of ey x ez elements in y
 and z that the kernel takes, for K2 (``lattice_face_sum_3d``, mask only)
 every vector width and every number of rows a block, on the main path's
 lattice, the p-multigrid level lattices, a lattice between one and two
 blocks per SM (96^3 at n = 8) and one with an odd row pitch; bf16, f32
-and f64. Each launch is forced through the wrapper, checked against the
+and f64. For K3 (``stiffness_lattice_3d_split``, bf16 and f32) at 128^3
+and 512^3, n = 8, every number of tiles a block and of stages that fits
+in shared memory, each with the blocks an SM holds by the card's own
+count (``kernels.split_blocks_per_sm``, printed beside the plan's model
+of it) and by 1 and 2; at 128^3 also L2-cold (``utils/timing.cuda_cold_ms``). Each launch is forced through the wrapper, checked against the
 plan's own result, and timed warm on the card by ``utils/timing.cuda_ms``.
 One JSON line per launch; ``"chosen": true`` marks the plan the wrapper
 picks by itself.
 
-Usage: python -m polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies.launch_plan_sweep
+Usage: python -m polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies.launch_plan_sweep [k1] [k2] [k3]
+(no argument: all three)
 """
 
 from __future__ import annotations
@@ -22,13 +28,14 @@ import sys
 import torch
 
 from ..ops import kernels
-from ..utils.timing import cuda_ms
+from ..utils.timing import cuda_cold_ms, cuda_ms
 
 __all__ = ["run"]
 
 K1_LATTICES = [((128, 128, 128), 8), ((96, 96, 96), 8), ((96, 96, 96), 6),
                ((64, 64, 64), 4), ((32, 32, 32), 2)]
 K2_LATTICES = K1_LATTICES + [((21, 14, 35), 7)]
+K3_LATTICES = [((128, 128, 128), 8), ((512, 512, 512), 8)]
 DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 POWERS = (1, 2, 4, 8, 16)
 
@@ -113,9 +120,62 @@ def _sweep_k2(gen, emit):
                         raise AssertionError(f"K2 under {plan} differs")
 
 
-def run():
-    """Every row of the sweep, on the current CUDA device, printed as it
-    comes."""
+def _time_split(emit, U, G, n, ref, plan, chosen, card, model, iters):
+    """One forced K3 launch: same result as the chosen plan's, timed warm
+    and, where the operands fit in the L2, cold too."""
+    call = lambda: kernels.stiffness_lattice_3d_split(U, G, n)
+    out = _forced("_split_plan", plan, call)
+    # a tile's arithmetic does not depend on the plan
+    same = bool((out == ref).all())
+    ms = _forced("_split_plan", plan, lambda: cuda_ms(call, iters))
+    cold = (_forced("_split_plan", plan, lambda: cuda_cold_ms(call, iters))
+            if U.shape[0] <= 128 else None)
+    emit({"kernel": "stiffness_lattice_3d_split", "shape": tuple(U.shape),
+          "n": n, "dtype": _name(U.dtype), "vec": plan.vec, "tx": plan.tx,
+          "stages": plan.stages, "blocks": plan.blocks,
+          "per_sm": -(-plan.blocks // 132), "card_per_sm": card,
+          "model_per_sm": model,
+          "smem_bytes": plan.smem_bytes, "ms": ms, "cold_ms": cold,
+          "same_result": same, "chosen": plan == chosen})
+    if not same:
+        raise AssertionError(f"K3 under {plan} differs")
+
+
+def _sweep_k3(gen, emit):
+    for shape, n in K3_LATTICES:
+        for dtype in (torch.bfloat16, torch.float32):
+            # drawn in the I/O dtype: 512^3 in f64 would not fit beside it
+            U = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            G = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for _ in range(6)]
+            isz = U.element_size()
+            ref = kernels.stiffness_lattice_3d_split(U, G, n)
+            chosen = kernels._split_plan(shape, n, isz,
+                                         [t.data_ptr() for t in (U, *G, ref)])
+            iters = 20 if shape[0] <= 128 else 3
+            for tx in POWERS[:4]:
+                for stages in (2, 3):
+                    base = kernels._split_launch(shape, isz, chosen.vec, tx, stages)
+                    if base.smem_bytes > kernels.MAX_SHARED_BLOCK:
+                        continue
+                    card = kernels.split_blocks_per_sm(dtype, base)
+                    model = kernels._split_resident(isz, tx, stages)
+                    # the blocks an SM runs are capped at what it holds
+                    plans = {kernels._split_launch(shape, isz, chosen.vec, tx,
+                                                   stages, per_sm)
+                             for per_sm in (1, 2, card)}
+                    for plan in sorted(plans, key=lambda p: p.blocks):
+                        _time_split(emit, U, G, n, ref, plan, chosen, card,
+                                    model, iters)
+            del U, G, ref
+
+
+SWEEPS = {"k1": _sweep_k1, "k2": _sweep_k2, "k3": _sweep_k3}
+
+
+def run(which=tuple(SWEEPS)):
+    """Every row of the sweeps named in ``which`` ("k1", "k2", "k3"), on
+    the current CUDA device, printed as it comes."""
     if not torch.cuda.is_available():
         raise RuntimeError("the launch-plan sweep times kernels: it needs a card")
     rows = []
@@ -126,13 +186,14 @@ def run():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    _sweep_k1(gen, emit)
-    _sweep_k2(gen, emit)
+    for name in which:
+        SWEEPS[name](gen, emit)
     return rows
 
 
-def main() -> int:
-    run()
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    run(tuple(argv) or tuple(SWEEPS))
     return 0
 
 

@@ -205,3 +205,121 @@ def test_launch_plan_sweep_forces_a_plan_and_needs_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             sweep.run()
+
+
+# K3 (ops/kernels.py _split_plan): one warp per 8^3 tile, a block takes a
+# super-tile of tx x-adjacent tiles, a 1-D grid walks the super-tiles; the
+# lattices chip_smoke.py drives at n = 8, 4 and 2, aligned and ragged
+SPLIT_LATTICES = [((128, 128, 128), 8), ((512, 512, 512), 8),
+                  ((16, 8, 24), 8), ((48, 40, 56), 8), ((128, 128, 128), 4),
+                  ((128, 128, 128), 2), ((32, 32, 64), 4), ((12, 20, 28), 4),
+                  ((16, 16, 16), 2), ((6, 10, 14), 2), ((8, 8, 8), 8),
+                  ((2, 2, 2), 2), ((4, 4, 4092), 4)]
+SPLIT_OFFSETS = (0, 4, 8, 16)
+
+
+def _check_split(shape, n, isz, ptrs):
+    plan = kernels._split_plan(shape, n, isz, ptrs)
+    mz, my, mx = shape
+    # the vector moves a point pair at least, 16 bytes at most, and
+    # divides the row pitch and every address
+    assert 2 <= plan.vec and plan.vec * isz <= 16 and 8 % plan.vec == 0
+    assert mx % plan.vec == 0
+    assert all(_aligned(p, plan.vec * isz) for p in ptrs)
+    # what the card takes
+    assert plan.threads == 32 * plan.tx and 1 <= plan.tx <= 8
+    assert plan.threads <= 1024
+    assert plan.stages in (2, 3)
+    assert plan.smem_bytes == plan.stages * 7 * plan.tx * 512 * isz
+    assert plan.smem_bytes <= MAX_SHARED_OPT_IN
+    assert plan.opt_in == (plan.smem_bytes > MAX_SHARED_STATIC)
+    assert kernels._split_resident(isz, plan.tx, plan.stages) >= 1
+    assert 1 <= plan.blocks <= 2 ** 31 - 1
+    # the super-tiles cover the lattice exactly once, and the blocks walk
+    # every super-tile once (block b takes b, b + blocks, ...)
+    sx, sy, sz = plan.supertiles
+    for m, t, s in ((mx, plan.tx * 8, sx), (my, 8, sy), (mz, 8, sz)):
+        assert (s - 1) * t < m <= s * t
+    total = sx * sy * sz
+    assert plan.blocks <= total
+    walk = -(-total // plan.blocks)
+    assert (walk - 1) * plan.blocks < total <= walk * plan.blocks
+    return plan
+
+
+@pytest.mark.parametrize("shape,n", SPLIT_LATTICES)
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_split_plan_is_launchable(shape, n, dtype):
+    isz = ITEMSIZE[dtype]
+    base = 1 << 20
+    for off in SPLIT_OFFSETS:
+        if off % (2 * isz):
+            continue          # the kernel takes lattices aligned to a pair
+        ptrs = [base + k * (1 << 16) + (off if k == 3 else 0) for k in range(8)]
+        _check_split(shape, n, isz, ptrs)
+
+
+@pytest.mark.parametrize("dtype,off,vec", [("bf16", 0, 8), ("bf16", 4, 2),
+                                           ("bf16", 8, 4), ("bf16", 16, 8),
+                                           ("f32", 0, 4), ("f32", 8, 2),
+                                           ("f32", 16, 4)])
+def test_split_vector_follows_the_least_aligned_operand(dtype, off, vec):
+    # one operand 4, 8 or 16 bytes past a 16-byte boundary narrows the
+    # vector of every operand, down to a point pair; nothing is copied
+    isz = ITEMSIZE[dtype]
+    ptrs = [1 << 24] * 7 + [(1 << 25) + off]
+    assert _check_split((48, 40, 56), 8, isz, ptrs).vec == vec
+
+
+@pytest.mark.parametrize("shape,n,dtype,tx,stages,blocks", [
+    ((128, 128, 128), 8, "bf16", 2, 3, 512), ((128, 128, 128), 8, "f32", 2, 2, 256),
+    ((512, 512, 512), 8, "bf16", 4, 2, 264), ((512, 512, 512), 8, "f32", 2, 2, 264),
+    ((16, 8, 24), 8, "bf16", 2, 3, 4), ((6, 10, 14), 2, "f32", 2, 3, 2),
+    ((8, 8, 8), 8, "f32", 1, 3, 1)])
+def test_split_plan_rules(shape, n, dtype, tx, stages, blocks):
+    # inputs that fit in the L2: 2 tiles a block, 3 stages, every resident
+    # block; else super-tile rows of 64 bytes, 2 stages, 2 blocks an SM;
+    # fewer tiles where the lattice is narrower
+    isz = ITEMSIZE[dtype]
+    plan = _check_split(shape, n, isz, (0, 1 << 20))
+    assert (plan.tx, plan.stages, plan.blocks) == (tx, stages, blocks)
+    fits = 7 * np.prod(shape) * isz <= 40 << 20
+    resident = kernels._split_resident(isz, plan.tx, plan.stages)
+    walk = -(-np.prod(plan.supertiles) // plan.blocks)
+    per_sm = resident if fits else 2
+    assert walk == -(-np.prod(plan.supertiles) // (per_sm * SM_COUNT))
+
+
+def test_split_resident_model():
+    # the plan's model of the blocks an SM holds (chip_smoke.py reads the
+    # card's own count beside it): 4 blocks of 57,344 bytes, 5 of 43,008
+    assert kernels._split_resident(2, 4, 2) == 4
+    assert kernels._split_resident(4, 2, 2) == 4
+    assert kernels._split_resident(2, 2, 3) == 5
+    assert kernels._split_resident(2, 8, 3) == 1
+    assert kernels._split_resident(2, 1, 2) == 15
+
+
+def test_split_plan_refuses_what_the_kernel_does_not_take():
+    for n in (3, 5, 6, 7, 9):
+        with pytest.raises(ValueError):
+            kernels._split_plan((2 * n, 2 * n, 2 * n), n, 4)
+    with pytest.raises(ValueError):
+        kernels._split_plan((8, 8, 12), 8, 4)             # not element-aligned
+    with pytest.raises(ValueError):
+        kernels._split_plan((8, 8, 8), 8, 8)              # f64
+    with pytest.raises(ValueError):                       # not pair-aligned
+        kernels._split_plan((8, 8, 8), 8, 4, (0, 4))
+    with pytest.raises(ValueError):                       # past the indices
+        kernels._split_plan((8, 8 * 2 ** 28, 8 * 16), 8, 2)
+
+
+@settings(max_examples=150, deadline=None)
+@given(n=st.sampled_from([2, 4, 8]), ez=st.integers(1, 40),
+       ey=st.integers(1, 40), ex=st.integers(1, 40),
+       dtype=st.sampled_from(["bf16", "f32"]),
+       off=st.sampled_from(SPLIT_OFFSETS))
+def test_split_plan_on_random_element_counts(n, ez, ey, ex, dtype, off):
+    isz = ITEMSIZE[dtype]
+    off -= off % (2 * isz)
+    _check_split((ez * n, ey * n, ex * n), n, isz, (1 << 20, (1 << 21) + off))

@@ -93,6 +93,43 @@ def test_twin_matches_study_kernel_interpret(artifact, shape, key, tol):
     assert _rel(out.float().numpy(), ref) <= tol
 
 
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("key,tol", [("f32", 1e-5), ("bf16", 1e-2)])
+def test_twin_matches_study_kernel_interpret_at_low_orders(artifact, n, key, tol):
+    # the Pallas kernel takes every n with 128 % n == 0 through the
+    # block-diagonal kron(I_{128/n}, D); so does the card kernel at 8 for
+    # n = 2 and 4, and the twin computes element by element
+    shape = (2 * n, 128, 128)
+    (Uj, Gj), (Ut, Gt) = _inputs(shape, key, seed=10 + n)
+    Db, Dbt, D_np = jsem._pallas_lattice_consts(n, jnp.float32)
+    ref = np.asarray(artifact.apply_split(Uj, Gj, Db, Dbt, n, D_np)
+                     .astype(jnp.float32))
+    out = kernels.stiffness_lattice_3d_split_plain(Ut, Gt, n)
+    assert out.dtype == Ut.dtype and out.shape == Ut.shape
+    assert _rel(out.float().numpy(), ref) <= tol
+
+
+@pytest.mark.parametrize("n", range(2, 9))
+def test_card_kernel_takes_the_orders_of_the_tpu_kernel(n):
+    # n = 2, 4, 8 tile the 8-wide contraction (the TPU kernel's
+    # 128 % n == 0 at 8); on a CUDA tensor any other n raises ValueError,
+    # which the launch plan decides for every lattice and dtype
+    assert kernels.SPLIT_ORDERS == (2, 4, 8)
+    shape = (2 * n, 3 * n, 4 * n)
+    for isz in (2, 4):
+        if n in (2, 4, 8):
+            plan = kernels._split_plan(shape, n, isz, (0, 1 << 20))
+            assert plan.vec >= 2 and plan.blocks >= 1
+        else:
+            with pytest.raises(ValueError):
+                kernels._split_plan(shape, n, isz, (0, 1 << 20))
+    # the wrapper's own check comes before any launch: a tensor that lies
+    # on neither the CPU nor a card raises ValueError for every n
+    meta = torch.empty(shape, device="meta")
+    with pytest.raises(ValueError):
+        kernels.stiffness_lattice_3d_split(meta, [meta] * 6, n)
+
+
 @pytest.mark.parametrize("key,tol", [("f32", 1e-4), ("bf16", 1e-2)])
 def test_twin_close_to_reference_k1_interpret(key, tol):
     (Uj, Gj), (Ut, Gt) = _inputs((8, 128, 128), key, seed=5)
