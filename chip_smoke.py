@@ -39,6 +39,17 @@ Phases, each printing JSON lines (any failure exits non-zero):
            pmultigrid(poly_reduction=2, smooth_damping=0.5) (orders 7, 5,
            3, 1) and by jacobi: K1 and K2 at n = 8, 6, 4, 2 at full width,
            and one p-multigrid solve under torch.profiler
+  femamg   the same mesh and right-hand side under f32 FGMRES(20) to 1e-4
+           preconditioned by composite_dd(poly_reduction=6,
+           inner="fem-amg", ptype=float32): the composite reassembled as
+           a P1 FEM matrix, 4 inner FGMRES steps each preconditioned by a
+           sparse V-cycle (the reference's production fem-amg run,
+           artifacts/femamg_production_16cubed.json: 26 iterations, r0
+           270.364). Setup seconds by stage, A0's size, the SpMV route
+           per dtype and A0's SpMV time against its byte bound, launches,
+           one solve under torch.profiler. Then the one-shard half of the
+           dry-run's gate 4 (__graft_entry__.py): Kershaw (2, 2, 17) N=3,
+           the bf16 hierarchy under FGMRES with a bf16 Z basis to 1e-6
 Then one {"kernels": [...]} line (each kernel variant: its launches on
 the driven paths, error, warm and cold time, plain time, bound and the
 share of the bound it reaches: this run's numbers only), one
@@ -481,6 +492,157 @@ def run_study(torch, kernels):
     return counts, warm_512
 
 
+FEMAMG_RECORD = {   # artifacts/femamg_production_16cubed.json (TPU run)
+    "iterations": 26, "r0": 270.36407470703125, "max_error": 0.2037501335144043}
+GATE4_ITERATIONS = 11  # MULTICHIP_r05.json, the one-shard half of gate 4
+
+
+def spmv_line(torch, mat, label):
+    """One SpMV of a packed matrix timed warm on the card, against its byte
+    bound (values, column indices and row offsets read once, x read once,
+    y written once)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops.csr import sparse_spmv
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
+    rows, cols = mat.shape
+    x = torch.ones(cols, dtype=mat.dtype, device=mat.vals.device)
+    nbytes = (mat.nnz * (mat.vals.element_size() + mat.cols.element_size())
+              + (rows + 1) * mat.crow.element_size()
+              + (rows + cols) * mat.vals.element_size())
+    ms = cuda_ms(lambda: sparse_spmv(mat, x), 20)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"matrix": label, "rows": rows, "cols": cols, "nnz": mat.nnz,
+            "dtype": str(mat.dtype).replace("torch.", ""),
+            "route": mat.route, "ms": ms, "bytes": nbytes,
+            "bound_ms": bound, "share_of_bound": bound / ms}
+
+
+def run_femamg(torch, kernels, dev, dom, mesh, mk, u_star, f):
+    """The reference's production fem-amg configuration on the main-path
+    mesh and right-hand side, then the one-shard half of gate 4; returns
+    the launch counts of the two solves."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import csr
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops.csr import sparse_spmv
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    total = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pre = composite_dd(dom, mk, poly_reduction=6, inner="fem-amg",
+                       ptype=torch.float32, fine_mesh=mesh)
+    torch.cuda.synchronize()
+    precond_s = time.time() - t0
+    tree = pre.extra["amg"]
+    A0 = tree["levels"][0]["A"]
+    solve = dom.solver(method="fgmres", max_iterations=200, precond=pre)
+    t0 = time.time()
+    solve(f)                                       # warm-up
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    kernels.reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = solve(f)
+    stop.record()
+    torch.cuda.synchronize()
+    seconds = start.elapsed_time(stop) / 1e3
+    counts = kernels.counts()
+    add_counts(total, counts)
+    hist = res.residual_history.cpu()
+    hist = hist[torch.isfinite(hist)]
+    its = res.iterations
+    err = (res.u - u_star).abs().max().item()
+    r0 = float(hist[0])
+    k1 = sum(counts["stiffness_lattice_3d"].values())
+    k2 = sum(counts["lattice_face_sum_3d"].values())
+    finite = bool(torch.isfinite(res.u).all()) and tuple(res.u.shape) == (128, 128, 128)
+    line = {"phase": "femamg", "mesh": "kershaw eps=0.3 16^3 N=7",
+            "precond": 'composite_dd(poly_reduction=6, inner="fem-amg", '
+                       'ptype=float32), 4 inner fgmres steps',
+            "method": "fgmres(20) f32 to 1e-4",
+            "precond_setup_seconds": precond_s,
+            "setup_seconds_by_stage": pre.extra["setup_seconds"],
+            "levels": [list(lv["A"].shape) for lv in tree["levels"]],
+            "A0_rows": A0.shape[0], "A0_nnz": A0.nnz,
+            "Q_nnz": tree["Q"].nnz, "P0_nnz": tree["prolongs"][0].nnz,
+            "spmv_route": {str(dt).replace("torch.", ""): r
+                           for dt, r in csr.ROUTES.items()},
+            "first_solve_seconds": first_s, "solve_seconds": seconds,
+            "iterations": its, "record_iterations": FEMAMG_RECORD["iterations"],
+            "converged": bool(res.converged), "r0": r0,
+            "record_r0": FEMAMG_RECORD["r0"],
+            "residuals": [float(x) for x in hist[:6]],
+            "max_err": err, "record_max_err": FEMAMG_RECORD["max_error"],
+            "ms_per_iteration": 1e3 * seconds / max(its, 1),
+            "k1_per_iteration": k1 / max(its, 1),
+            "k2_per_iteration": k2 / max(its, 1),
+            "launches": counts, "finite": finite,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    if not (bool(res.converged) and 25 <= its <= 27 and finite
+            and abs(r0 - FEMAMG_RECORD["r0"]) <= 1e-5 * FEMAMG_RECORD["r0"]
+            and plain_calls(counts) == 0 and k1 > 0 and k2 > 0):
+        raise AssertionError(f"femamg solve failed its checks: {line}")
+    # where the device time goes: A0's SpMV against its byte bound, the
+    # transfers, and one solve under the profiler
+    for mat, label in ((A0, "A0"), (tree["Q"], "Q"), (tree["Qt"], "Qt"),
+                       (tree["prolongs"][0], "P0"),
+                       (tree["restricts"][0], "R0")):
+        emit({"phase": "femamg-spmv", **spmv_line(torch, mat, label)})
+    emit(profile_solve(torch, solve, f, phase="femamg-profile", top_n=16))
+    del pre, tree, A0, solve, res
+
+    # the one-shard half of gate 4: bf16 hierarchy, bf16 Z basis
+    mk4 = partial(kershaw_mesh, (2, 2, 17), epsilon=0.3,
+                  extent=(1.0, 1.0, 8.5), device=dev)
+    mesh4 = mk4(3)
+    dom4 = Domain(partition_mesh(mesh4, 1), dtype=torch.float32, device=dev)
+    pre4 = composite_dd(dom4, mk4, poly_reduction=2, inner="fem-amg",
+                        ptype=torch.bfloat16, fine_mesh=mesh4)
+    u4 = dom4.initial_function(4, seed=0)
+    f4 = dom4.manufacture_rhs(u4)
+    kernels.reset_counts()
+    res4 = dom4.solver(method="fgmres", max_iterations=200, tolerance=1e-6,
+                       precond=pre4, z_dtype=torch.bfloat16)(f4)
+    torch.cuda.synchronize()
+    counts4 = kernels.counts()
+    add_counts(total, counts4)
+    err4 = (res4.u - u4).abs().max().item()
+    # the bf16 route on the card: f32 sums rounded once, one fixed order
+    A4 = pre4.extra["amg"]["levels"][0]["A"]
+    x4 = torch.linspace(-1.0, 1.0, A4.shape[1], device=dev).to(torch.bfloat16)
+    y4 = sparse_spmv(A4, x4)
+    twice = bool(torch.equal(sparse_spmv(A4, x4), y4))
+    dense = torch.zeros(A4.shape, dtype=torch.float64, device=dev)
+    rows = torch.repeat_interleave(
+        torch.arange(A4.shape[0], device=dev), A4.crow.diff())
+    dense[rows, A4.cols] = A4.vals.double()
+    ref4 = dense @ x4.double()
+    spmv_err = ((y4.double() - ref4).abs().max()
+                / ref4.abs().max().clamp(min=1e-30)).item()
+    line = {"phase": "femamg-gate4", "mesh": "kershaw eps=0.3 (2,2,17) N=3, "
+            "extent (1,1,8.5)",
+            "precond": 'composite_dd(poly_reduction=2, inner="fem-amg", '
+                       'ptype=bfloat16)',
+            "method": "fgmres f32, z_dtype bfloat16, to 1e-6",
+            "iterations": res4.iterations,
+            "record_iterations": GATE4_ITERATIONS,
+            "converged": bool(res4.converged), "max_err": err4,
+            "A0_route": A4.route, "A0_rows": A4.shape[0], "A0_nnz": A4.nnz,
+            "bf16_spmv_rel_err_vs_f64": spmv_err,
+            "bf16_spmv_bitwise_repeatable": twice, "launches": counts4}
+    emit(line)
+    if not (bool(res4.converged) and 10 <= res4.iterations <= 12
+            and err4 < 1e-3 and A4.route == "segment_sum" and twice
+            and spmv_err <= 1e-2 and plain_calls(counts4) == 0
+            and sum(counts4["stiffness_lattice_3d"].values()) > 0
+            and sum(counts4["lattice_face_sum_3d"].values()) > 0):
+        raise AssertionError(f"gate-4 fem-amg solve failed its checks: {line}")
+    return total
+
+
 PMG_DAMPING = 0.5
 
 
@@ -694,6 +856,10 @@ def main():
 
     add_counts(path_counts, run_pmg(torch, kernels, dom, mk, u_star, f))
     phase_done("pmg")
+
+    add_counts(path_counts, run_femamg(torch, kernels, dev, dom, mesh, mk,
+                                       u_star, f))
+    phase_done("femamg")
 
     entries = []
     for (name, dt), t in sorted(timed.items()):

@@ -2,8 +2,11 @@
 
 Port of the JAX package's ``amg/fem.py`` (host numpy/scipy setup): each
 hex cell between adjacent grid nodes becomes 6 Kuhn tetrahedra with
-per-simplex P1 stiffness. Only the numpy assembly is ported; the native
-C++ binding waits for the fem-amg slice (the vertex grid is small).
+per-simplex P1 stiffness. The default assembly is the shared native C++
+library (utils/native.py, 2-D and 3-D); the numpy assembly is 3-D and
+runs only when ``use_native=False`` is passed. ``sem_element_matrices``
+gives the exact SEM element matrices (order-1 layers of the composite
+FEM hierarchy use them).
 """
 
 from __future__ import annotations
@@ -11,9 +14,9 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from ..utils.gll import gll_points_weights, lagrange_eval
+from ..utils.gll import diff_matrix, gll_points_weights, lagrange_eval
 
-__all__ = ["p1_stiffness_grid", "grid_interp_1d"]
+__all__ = ["p1_stiffness_grid", "grid_interp_1d", "sem_element_matrices"]
 
 # Kuhn triangulation of the unit cube: for each permutation pi of the axes,
 # the tet 0 -> e_{pi0} -> e_{pi0}+e_{pi1} -> (1,1,1). Corners as (cz, cy, cx).
@@ -46,14 +49,21 @@ def _simplex_stiffness(verts):
     return np.einsum("bad,bcd->bac", grads, grads) * vol[:, None, None]
 
 
-def p1_stiffness_grid(X: np.ndarray) -> sp.csr_matrix:
-    """P1 stiffness matrix on a structured 3-D node grid X (nz, ny, nx, 3),
-    CSR over C-order raveled node indices, no boundary conditions."""
+def p1_stiffness_grid(X: np.ndarray, use_native: bool = True) -> sp.csr_matrix:
+    """P1 stiffness matrix on a structured node grid X (nz, ny, nx, 3) or,
+    native only, (ny, nx, 2): CSR over C-order raveled node indices, no
+    boundary conditions. ``use_native`` (default) assembles with the
+    native library and raises if it cannot be built; False runs the numpy
+    assembly (3-D)."""
     X = np.asarray(X, dtype=np.float64)
-    if X.shape[-1] != 3:
-        raise NotImplementedError("the port's FEM grids are 3-D")
     grid = X.shape[:-1]
     n = int(np.prod(grid))
+    if use_native:
+        from ..utils import native
+        rows, cols, vals = native.p1_fem_coo(X)
+        return native.coo_to_csr(rows, cols, vals, (n, n))
+    if X.shape[-1] != 3:
+        raise NotImplementedError("the port's numpy FEM assembly is 3-D")
     nid = np.arange(n, dtype=np.int64).reshape(grid)
     nz, ny, nx = grid
     cz, cy, cx = nz - 1, ny - 1, nx - 1
@@ -94,3 +104,33 @@ def grid_interp_1d(m: int, o_from: int, o_to: int) -> sp.csr_matrix:
     return sp.coo_matrix(
         (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
         shape=(n_to, n_from)).tocsr()
+
+
+def sem_element_matrices(geom: np.ndarray, dim: int, n: int) -> np.ndarray:
+    """Exact SEM element stiffness matrices (E, npe, npe) from geometric
+    factors (E, npe, 3 or 6): K_e = sum_ab D_a^T diag(G_ab) D_b. With n=2
+    these are the SEM Q1 element matrices of order-1 elements."""
+    D1 = np.asarray(diff_matrix(n))
+    eye = np.eye(n)
+    Ds = []
+    for a in range(dim):                   # a = 0 -> r (x, fastest axis)
+        mats = [eye] * dim
+        mats[dim - 1 - a] = D1
+        M = mats[0]
+        for k in range(1, dim):
+            M = np.kron(M, mats[k])
+        Ds.append(M)
+    Ds = np.stack(Ds)                      # (dim, npe, npe)
+    if dim == 2:
+        comp = [(0, 0, 0), (1, 1, 1), (2, 0, 1)]
+    else:
+        comp = [(0, 0, 0), (1, 1, 1), (2, 2, 2),
+                (3, 0, 1), (4, 0, 2), (5, 1, 2)]
+    npe = n ** dim
+    E = geom.shape[0]
+    Gf = np.zeros((E, npe, dim, dim))
+    g = geom.reshape(E, npe, -1)
+    for k, a, b in comp:
+        Gf[..., a, b] = g[..., k]
+        Gf[..., b, a] = g[..., k]
+    return np.einsum("amp,emab,bmq->epq", Ds, Gf, Ds)

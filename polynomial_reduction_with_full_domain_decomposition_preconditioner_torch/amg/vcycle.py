@@ -1,11 +1,15 @@
-"""Chebyshev smoothing and the vertex-grid stencil V-cycle.
+"""Chebyshev smoothing and the multilevel V-cycles.
 
-Port of the JAX package's ``amg/vcycle.py`` pieces on the main path:
-``cheby_smooth`` (diagonal-preconditioned Chebyshev on [0.3*lmax, lmax],
-hypre relax_type=16 semantics), ``pack_chain`` and ``chain_vcycle`` (a
-V(1,1) cycle on the 27-point stencil chain with dense per-axis transfers
-and a dense coarsest inverse). Fields may be tensors or lists of tensors
-(the composite problem keeps per-group lattices).
+Port of the JAX package's ``amg/vcycle.py``: ``cheby_smooth``
+(diagonal-preconditioned Chebyshev on [0.3*lmax, lmax], hypre
+relax_type=16 semantics); ``pack_chain`` and ``chain_vcycle`` (a V(1,1)
+cycle on the vertex grid's 27-point stencil chain with dense per-axis
+transfers, inner="amg"); ``pack_hierarchies``, ``vcycle_apply`` and
+``composite_preconditioner`` (the assembled composite FEM hierarchy of
+inner="fem-amg": sparse level matrices and transfers through
+ops/csr.sparse_spmv, a dense coarsest inverse, the lattice <-> DOF maps
+Q / Q^T around the cycle). Fields may be tensors or lists of tensors (the
+composite problem keeps per-group lattices).
 """
 
 from __future__ import annotations
@@ -13,10 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.csr import CsrMatrix, csr_from_scipy, sparse_spmv
 from ..ops.interp import axis_contract
 from ..ops.stencil import stencil_apply, stencil_from_csr
 
-__all__ = ["CHEBY_FRACTION", "cheby_smooth", "pack_chain", "chain_vcycle"]
+__all__ = ["CHEBY_FRACTION", "cheby_smooth", "pack_chain", "chain_vcycle",
+           "pack_hierarchies", "vcycle_apply", "composite_preconditioner"]
 
 CHEBY_FRACTION = 0.3   # hypre's cheby_fraction default (relax_type=16)
 
@@ -28,19 +34,28 @@ def _tmap(fn, *xs):
     return fn(*xs)
 
 
+def _apply(A, x):
+    """Level-operator dispatch: a CsrMatrix, or any callable x -> A x (the
+    matrix-free composite operator of the hybrid V-cycle)."""
+    if isinstance(A, CsrMatrix):
+        return sparse_spmv(A, x)
+    return A(x)
+
+
 def cheby_smooth(A, invd, lmax, f, u, order: int):
-    """Chebyshev smoothing on [CHEBY_FRACTION*lmax, lmax]: A is a callable
-    x -> A x; ``lmax`` a 0-d tensor (its dtype sets the scalars')."""
+    """Chebyshev smoothing on [CHEBY_FRACTION*lmax, lmax]: A is a CsrMatrix
+    or a callable x -> A x; ``lmax`` a 0-d tensor (its dtype sets the
+    scalars')."""
     lmin = CHEBY_FRACTION * lmax
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma = theta / delta
     rho = 1.0 / sigma
-    r = f if u is None else _tmap(torch.sub, f, A(u))
+    r = f if u is None else _tmap(torch.sub, f, _apply(A, u))
     d = _tmap(lambda iv, rl: iv * rl / theta, invd, r)
     u = d if u is None else _tmap(torch.add, u, d)
     for _ in range(order - 1):
-        r = _tmap(torch.sub, r, A(d))
+        r = _tmap(torch.sub, r, _apply(A, d))
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = _tmap(lambda dl, iv, rl: rho_new * rho * dl
                   + (2.0 * rho_new / delta) * (iv * rl), d, invd, r)
@@ -99,3 +114,77 @@ def chain_vcycle(chain: dict, f, *, cheby_order: int = 2):
         return cheby_smooth(A, lv["invd"], lv["lmax"], fl, u, cheby_order)
 
     return cycle(0, f)
+
+
+def pack_hierarchies(hiers, dtype=torch.float32, *, device) -> dict:
+    """Tensors on ``device`` for one shard's assembled hierarchy, unstacked.
+    ``hiers`` is a one-element list of any object with HostHierarchy's
+    fields (scipy sparse matrices and numpy arrays): a hierarchy the JAX
+    package built packs the same way. Every sparse operator is a CsrMatrix
+    in ``dtype`` (its SpMV route follows the dtype, ops/csr.py)."""
+    if len(hiers) != 1:
+        raise ValueError(f"one shard's hierarchy is packed, got {len(hiers)}")
+    h = hiers[0]
+    pack = lambda m: csr_from_scipy(m, dtype=dtype, device=device)
+    arr = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                    device=device).to(dtype)
+    nlev = len(h.mats)
+    levels = []
+    for l in range(nlev):
+        d = h.mats[l].diagonal()
+        levels.append({
+            "A": pack(h.mats[l]),
+            "invd": arr(np.where(d > 0, 1.0 / d, 0.0)),
+            "lmax": arr(h.lmaxs[l] if l < nlev - 1 else 1.0),
+        })
+    return {
+        "levels": levels,
+        "prolongs": [pack(h.prolongs[l]) for l in range(nlev - 1)],
+        "restricts": [pack(h.prolongs[l].T.tocsr()) for l in range(nlev - 1)],
+        "coarse_inv": arr(h.coarse_inv),
+        "Q": pack(h.Q),
+        "Qt": pack(h.Q.T.tocsr()),
+        "dof_mask": arr(h.dof_mask),
+    }
+
+
+def vcycle_apply(tree: dict, f, *, cheby_order: int = 2,
+                 num_cycles: int = 1):
+    """``num_cycles`` V(1,1) cycles on an assembled-DOF right-hand side
+    (a pack_hierarchies tree): Chebyshev smoothing, sparse restriction and
+    prolongation, the dense coarsest inverse."""
+    levels = tree["levels"]
+    prolongs = tree["prolongs"]
+    restricts = tree["restricts"]
+    nlev = len(levels)
+
+    def cycle(l, fl):
+        if l == nlev - 1:
+            return torch.matmul(tree["coarse_inv"], fl)
+        lv = levels[l]
+        u = cheby_smooth(lv["A"], lv["invd"], lv["lmax"], fl, None,
+                         cheby_order)
+        r = fl - _apply(lv["A"], u)
+        fc = _apply(restricts[l], r)
+        uc = cycle(l + 1, fc)
+        u = u + _apply(prolongs[l], uc)
+        return cheby_smooth(lv["A"], lv["invd"], lv["lmax"], fl, u,
+                            cheby_order)
+
+    u = cycle(0, f)
+    for _ in range(num_cycles - 1):
+        u = u + cycle(0, f - _apply(levels[0]["A"], u))
+    return u
+
+
+def composite_preconditioner(tree: dict, *, cheby_order: int = 2,
+                             num_cycles: int = 1):
+    """(flat composite lattice r -> z) low-order preconditioner apply:
+    gather to DOFs (Q^T), V-cycle(s), scatter back (Q)."""
+    def apply(r):
+        f = _apply(tree["Qt"], r) * tree["dof_mask"]
+        v = vcycle_apply(tree, f, cheby_order=cheby_order,
+                         num_cycles=num_cycles)
+        return _apply(tree["Q"], v * tree["dof_mask"])
+
+    return apply

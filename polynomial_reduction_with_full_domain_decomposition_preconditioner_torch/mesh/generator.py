@@ -307,13 +307,19 @@ def box_mesh(elem_shape, poly_degree, extent=None, device=None) -> GlobalMesh:
     return _build(elem_shape, poly_degree, transform=transform, device=device)
 
 
-def kershaw_mesh(elem_shape, poly_degree, epsilon=0.3,
+def kershaw_mesh(elem_shape, poly_degree, epsilon=0.3, extent=None,
                  device=None) -> GlobalMesh:
-    """Kershaw-warped unit-cube mesh: epsilon=1.0 gives the uniform box,
-    smaller epsilon a higher distortion. The geometric factors are
+    """Kershaw-warped box mesh: epsilon=1.0 gives the uniform box, smaller
+    epsilon a higher distortion. ``extent`` scales the physical domain
+    after the warp (the unit cube when None). The geometric factors are
     computed on ``device``."""
+    ext = tuple(extent) if extent is not None else None
+
     def vtransform(x, y, z):
-        return kershaw_transform(epsilon, epsilon, x, y, z)
+        X, Y, Z = kershaw_transform(epsilon, epsilon, x, y, z)
+        if ext is not None:
+            X, Y, Z = X * ext[0], Y * ext[1], Z * ext[2]
+        return X, Y, Z
 
     return _build(tuple(elem_shape), poly_degree,
                   vertex_transform=vtransform, device=device)

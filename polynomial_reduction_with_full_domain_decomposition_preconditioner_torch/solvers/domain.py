@@ -112,34 +112,45 @@ class Domain:
 
     # ---- solvers ----
 
-    def solver(self, method="fcg", precond=None, max_iterations=500,
-               num_vectors=20, tolerance=None, z_dtype=None):
+    def solver(self, method="fcg", precond=None, precond_builder=None,
+               max_iterations=500, num_vectors=20, tolerance=None,
+               use_relative=True, z_dtype=None):
         """A solve function f -> KrylovResult, converging to ``tolerance``
-        relative to the initial residual norm.
+        times the initial residual norm (``use_relative``, the default) or
+        to the absolute ``tolerance``.
 
-        precond: a Preconditioner (solvers/preconditioners.py), or None
-          for the unpreconditioned path z = QQt r with mask. Its closure
+        precond: a Preconditioner (solvers/preconditioners.py). Its closure
           is built once here.
+        precond_builder: used when ``precond`` is None — a bare builder
+          with no extra arrays, builder(arrays, None, ops) -> (r -> z).
+          With neither, the unpreconditioned path z = QQt r with mask.
         z_dtype: FGMRES only — storage dtype of the flexible Z basis.
         """
         if tolerance is None:
             tolerance = 1.0e-7 if self.dtype == torch.float64 else 1.0e-4
         operator, dssum, dot, dot2 = self._ops()
+        ops = (operator, dssum, dot, dot2)
 
         def dssum_plain(r):
             return dssum(r, apply_mask=True, apply_weight=False)
 
-        pre = dssum_plain if precond is None else precond.build(
-            self.arrays, precond.extra, (operator, dssum, dot, dot2))
+        if precond is not None:
+            pre = precond.build(self.arrays, precond.extra, ops)
+        elif precond_builder is not None:
+            pre = precond_builder(self.arrays, None, ops)
+        else:
+            pre = dssum_plain
         if method == "fcg":
             return lambda f: krylov.fcg(
                 operator, pre, dssum_plain, dot, dot2, f,
-                max_iterations=max_iterations, tolerance=tolerance)
+                max_iterations=max_iterations, tolerance=tolerance,
+                use_relative=use_relative)
         if method == "fgmres":
             return lambda f: krylov.fgmres(
                 operator, pre, dssum_plain, dot, f,
                 max_iterations=max_iterations, num_vectors=num_vectors,
-                tolerance=tolerance, z_dtype=z_dtype)
+                tolerance=tolerance, use_relative=use_relative,
+                z_dtype=z_dtype)
         raise ValueError(f"unknown method {method!r}")
 
     # ---- fields and manufactured solutions ----

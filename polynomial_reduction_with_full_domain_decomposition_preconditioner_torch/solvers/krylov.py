@@ -105,9 +105,19 @@ def _res_norm(r, dssum_plain, dot):
     return torch.sqrt(torch.clamp(dot(r, dssum_plain(r)), min=0.0))
 
 
+def _target(tolerance, use_relative, r0_norm):
+    """The residual norm a solve stops under: tolerance * ||r0||, or the
+    tolerance itself (``use_relative=False``)."""
+    if use_relative:
+        return tolerance * r0_norm
+    return torch.as_tensor(tolerance, dtype=r0_norm.dtype,
+                           device=r0_norm.device)
+
+
 def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
-        max_iterations: int, tolerance: float):
-    """Flexible (Notay) preconditioned CG."""
+        max_iterations: int, tolerance: float, use_relative: bool = True):
+    """Flexible (Notay) preconditioned CG; the target is tolerance * ||r0||
+    (``use_relative``) or the absolute tolerance."""
     dtype = _leaves(f)[0].dtype
     u = _tmap(torch.zeros_like, f)
     r = f
@@ -118,7 +128,7 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
     hist = torch.full((max_iterations + 1,), float("nan"), dtype=dtype,
                       device=r0_norm.device)
     hist[0] = r0_norm
-    target = tolerance * r0_norm          # relative to the initial residual
+    target = _target(tolerance, use_relative, r0_norm)
     check = tolerance > 0
     it = 0
     done = check and bool(r0_norm < target)
@@ -147,9 +157,10 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
 
 def fgmres(operator, precond, dssum_plain, dot, f, *,
            max_iterations: int, num_vectors: int = 20,
-           tolerance: float, z_dtype=None):
+           tolerance: float, use_relative: bool = True, z_dtype=None):
     """Restarted flexible GMRES(m) with Givens rotations and a masked
-    back-substitution over the columns actually built.
+    back-substitution over the columns actually built; the target is
+    tolerance * ||r0|| (``use_relative``) or the absolute tolerance.
 
     z_dtype: storage dtype of the flexible Z basis; the preconditioner
     output is quantized to it BEFORE the operator sees it, so the Arnoldi
@@ -161,7 +172,7 @@ def fgmres(operator, precond, dssum_plain, dot, f, *,
     u = _tmap(torch.zeros_like, f)
     r0_norm = _res_norm(f, dssum_plain, dot)
     device = r0_norm.device
-    target = tolerance * r0_norm          # relative to the initial residual
+    target = _target(tolerance, use_relative, r0_norm)
     check = tolerance > 0
     hist = torch.full((max_iterations + 1,), float("nan"), dtype=dtype,
                       device=device)

@@ -2,8 +2,9 @@
 
 Port of the JAX package's ``solvers/subdomain.composite_dd`` for ONE
 structured shard: the matrix-free hybrid inner preconditioner
-(inner="amg"), the assembled-diagonal stand-in ("jacobi") or plain QQt
-("none"), under a fixed inner FGMRES or FCG. On one shard the composite
+(inner="amg"), the assembled composite FEM hierarchy ("fem-amg"), the
+assembled-diagonal stand-in ("jacobi") or plain QQt ("none"), under a
+fixed inner FGMRES or FCG. On one shard the composite
 problem is the whole domain at order N, a single layer group (G=1): the
 composite operator is the SEM apply (kernel K1), the composite dssum the
 one-pass face sum with the mask fused in (kernel K2), and the outer
@@ -12,21 +13,31 @@ cascade feeds only ring and far groups, which one shard does not have, so
 it is not computed). With inner="amg" each inner step is preconditioned
 by Chebyshev smoothing on the composite operator plus a vertex-grid
 correction in >= f32: one chain V-cycle, or ``vertex_iters`` PCG steps
-preconditioned by it.
+preconditioned by it. With inner="fem-amg" each inner step is
+preconditioned by a V-cycle on the composite problem reassembled as a
+low-order FEM matrix (amg/composite.build_composite_hierarchy, packed in
+the ptype by amg/vcycle.pack_hierarchies): Q^T, the V-cycle and Q on the
+flattened group lattice, then the group mask.
 
-Sharding and inner="fem-amg" raise NotImplementedError (later slices).
+The layer-group specs (``_GroupSpec``, ``_build_group_specs``) are the
+reference's; on one shard they give the single group. Sharding raises
+NotImplementedError (a later slice).
 """
 
 from __future__ import annotations
 
 import os
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..amg.composite import (load_chain_info, save_chain_info,
-                             vertex_q1_hierarchy)
-from ..amg.vcycle import cheby_smooth, chain_vcycle, pack_chain
+from ..amg.composite import (build_composite_hierarchy, load_chain_info,
+                             save_chain_info, vertex_q1_hierarchy)
+from ..amg.vcycle import (cheby_smooth, chain_vcycle,
+                          composite_preconditioner, pack_chain,
+                          pack_hierarchies)
 from ..mesh.layout import elements_to_lattice
 from ..ops import sem
 from ..ops.interp import axis_contract
@@ -37,6 +48,62 @@ from .preconditioners import Preconditioner
 from . import krylov
 
 __all__ = ["composite_dd"]
+
+
+@dataclass(frozen=True)
+class _GroupSpec:
+    order: int          # polynomial order of this layer group
+    layers: int         # number of element layers (in zcoarse units)
+    start_pos: int      # first layer position (cyclic, FINE layer units)
+    zcoarse: int = 1    # z element-merge factor (1 = fine layers)
+
+    @property
+    def fine_extent(self) -> int:
+        return self.layers * self.zcoarse
+
+
+def _build_group_specs(S, V, L, orders, total_layers, far_zcoarse: int = 1,
+                       sup_overlap: int = 1):
+    """Layer groups in cyclic position order: own slab, rings above
+    (orders[0..L-1], V layers each), far field (order 1), rings below
+    (mirrored). With far_zcoarse > 1 the far field is carried on z-merged
+    layers, with ``sup_overlap`` coarse-layer widths of fine order-1
+    layers kept on each side."""
+    groups = [_GroupSpec(orders[0], S, 0)]
+    if total_layers == S:
+        return groups  # single shard: the composite is the whole domain
+    pos = S
+    for l in range(L):
+        groups.append(_GroupSpec(orders[l], V, pos))
+        pos += V
+    far = total_layers - S - 2 * V * L
+    if far < 0:
+        raise ValueError(
+            f"mesh too small for overlap: need >= {S + 2 * V * L} layers, "
+            f"have {total_layers}")
+    if far > 0:
+        F = far_zcoarse
+        ov = sup_overlap * F if F > 1 else 0
+        if F > 1 and ((far - 2 * ov) % F != 0 or far - 2 * ov < F):
+            raise ValueError(
+                f"far_coarsen={F} misaligned: the far field "
+                f"({far} layers minus 2x{ov} fine overlap) must be a "
+                f"positive multiple of {F}")
+        if ov > 0:
+            groups.append(_GroupSpec(orders[-1], ov, pos))
+            pos += ov
+        mid = far - 2 * ov
+        groups.append(_GroupSpec(orders[-1], mid // F, pos, zcoarse=F))
+        pos += mid
+        if ov > 0:
+            groups.append(_GroupSpec(orders[-1], ov, pos))
+            pos += ov
+    for l in range(L - 1, -1, -1):
+        groups.append(_GroupSpec(orders[l], V, pos))
+        pos += V
+    if pos != total_layers:
+        raise ValueError(f"groups cover {pos} layers of {total_layers}")
+    return groups
 
 
 def composite_dd(domain, mesh_builder, poly_reduction: int,
@@ -65,15 +132,16 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
       one shard has no far field, so it changes nothing here.
     num_iterations: fixed inner Krylov iterations.
     inner: the composite solve's own preconditioner: "amg" (Chebyshev on
-      the composite operator + the vertex-grid chain), "jacobi" (the
+      the composite operator + the vertex-grid chain), "fem-amg" (a
+      V-cycle on the assembled composite FEM hierarchy), "jacobi" (the
       assembled diagonal) or "none" (plain composite QQt).
     inner_solver: "fgmres" or "fcg"; both run the same fixed count. FCG
       stores no Arnoldi basis and assumes the composite operator is
       effectively SPD.
-    num_vcycles / cheby_order: hybrid V-cycle hyperparameters.
+    num_vcycles / cheby_order: V-cycle hyperparameters (both inners).
     ptype: preconditioner precision (default: the domain's dtype); the
-      composite geometry, mask and weight are stored in it, the vertex
-      chain in >= f32.
+      composite geometry, mask and weight are stored in it, as is the
+      fem-amg hierarchy; the vertex chain of inner="amg" in >= f32.
     max_coarse: coarsest vertex-level size for the dense solve.
     far_coarsen: far-field z element-merge factor, "auto" or an integer.
       One shard's composite has no far field, so "auto" and 1 are the only
@@ -93,11 +161,9 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     if inner_solver not in ("fgmres", "fcg"):
         raise ValueError(f"inner_solver={inner_solver!r} "
                          "(use 'fgmres' or 'fcg')")
-    if inner == "fem-amg":
-        raise NotImplementedError(
-            "inner='fem-amg' (the assembled FEM hierarchy) is not ported yet")
-    if inner not in ("amg", "jacobi", "none"):
-        raise ValueError(f"inner={inner!r} (use 'amg', 'jacobi' or 'none')")
+    if inner not in ("amg", "fem-amg", "jacobi", "none"):
+        raise ValueError(f"inner={inner!r} "
+                         "(use 'amg', 'fem-amg', 'jacobi' or 'none')")
     sd = domain.sharded
     if sd.structured is None or sd.num_shards != 1:
         raise NotImplementedError("the port's composite is one structured shard")
@@ -129,8 +195,9 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
             raise ValueError(
                 f"far_coarsen={Fz}: one shard's composite is the whole "
                 "domain and has no far field to compress")
-    # one shard owns every layer, so the layer-group build of the reference
-    # gives a single group: the own slab (the whole domain) at order N
+    # one shard owns every layer, so the layer-group build gives a single
+    # group: the own slab (the whole domain) at order N
+    groups = _build_group_specs(S, V, len(orders), orders, m_last)
     n = N + 1
 
     # group geometry, mask and inverse multiplicity in the ptype
@@ -147,7 +214,20 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     D = torch.as_tensor(diff_matrix(n), dtype=dtype, device=device)
 
     amg = None
-    if inner == "amg":
+    setup_seconds = {}
+    if inner == "fem-amg":
+        # the assembled composite FEM hierarchy (host f64), packed in the
+        # ptype: level matrices, transfers and Q / Q^T as CSR on the device
+        hier = build_composite_hierarchy(groups, {N: mesh_N}, plane_shape,
+                                         m_last, 0, dim,
+                                         max_coarse=max_coarse)
+        t0 = time.perf_counter()
+        amg = pack_hierarchies([hier], dtype=dtype, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        setup_seconds = dict(hier.setup_seconds,
+                             pack=time.perf_counter() - t0)
+    elif inner == "amg":
         # vertex chain in >= f32 (the coarse correction must not round off)
         if chain_info is None and chain_cache is not None \
                 and os.path.exists(chain_cache):
@@ -189,16 +269,18 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
         # rank-local plain point-space dot (no multiplicity weight)
         return krylov.tree_dot(a, b)
 
-    # continuous inverse assembled diagonal of the composite operator
-    diag = comp_dssum([sem.stiffness_diagonal_lattice(geom, D, dim)],
-                      apply_mask=False)[0]
-    comp_inv_diag = [torch.where(diag > 0, 1.0 / diag, torch.zeros_like(diag))]
-
     def A_mf(x):
         return comp_dssum(comp_operator(x), apply_mask=True)
 
     def comp_dot2(a, b, c, d):
         return comp_dot(a, b), comp_dot(c, d)
+
+    if inner in ("amg", "jacobi"):
+        # continuous inverse assembled diagonal of the composite operator
+        diag = comp_dssum([sem.stiffness_diagonal_lattice(geom, D, dim)],
+                          apply_mask=False)[0]
+        comp_inv_diag = [torch.where(diag > 0, 1.0 / diag,
+                                     torch.zeros_like(diag))]
 
     if inner == "amg":
         # Chebyshev bound: lambda_max(D^-1 A) of the composite operator by
@@ -257,6 +339,16 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
                 x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, x,
                                  cheby_order)
             return x
+    elif inner == "fem-amg":
+        # G = 1: join / split are a flatten and a reshape of the group's
+        # lattice, and the composite mask is the group's mask
+        amg_apply = composite_preconditioner(amg, cheby_order=cheby_order,
+                                             num_cycles=num_vcycles)
+        comp_mask = mask.reshape(-1)
+
+        def inner_precond(rr):
+            return [(amg_apply(rr[0].reshape(-1)) * comp_mask)
+                    .reshape(mask.shape)]
     elif inner == "jacobi":
         def inner_precond(rr):
             return [comp_dssum(rr, apply_mask=True)[0] * comp_inv_diag[0]]
@@ -268,6 +360,8 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
                          "D": D}]}
     if amg is not None:
         extra["amg"] = amg
+    if setup_seconds:
+        extra["setup_seconds"] = setup_seconds
 
     def build(arrays, extra_, ops):
         _, dssum_f, _, _ = ops

@@ -3,6 +3,8 @@
 refinement vs the JAX package on the CPU. Both packages get the identical
 problem: the JAX meshes go across with GlobalMesh.from_numpy."""
 
+import copy
+import dataclasses
 from functools import partial
 
 import numpy as np
@@ -116,14 +118,21 @@ def test_unported_options_raise():
     tm = tg.kershaw_mesh((2, 2, 4), 2, device="cpu")
     td = TDomain(tpartition(tm, 1), dtype=torch.float64, device="cpu")
     mk = partial(tg.kershaw_mesh, (2, 2, 4), device="cpu")
-    # the Jacobi / plain-QQt inner preconditioners and the FCG inner solver
-    # are ported (tests/test_torch_composite_variants.py); the assembled
-    # FEM hierarchy is not
-    with pytest.raises(NotImplementedError):
-        tsub.composite_dd(td, mk, poly_reduction=1, fine_mesh=tm,
-                          inner="fem-amg")
-    for kw in ({"inner": "jacobi"}, {"inner_solver": "fcg"}):
+    # the Jacobi / plain-QQt inner preconditioners, the FCG inner solver
+    # (tests/test_torch_composite_variants.py) and the assembled FEM
+    # hierarchy (tests/test_torch_femamg.py) are ported on one shard; more
+    # shards are not
+    for kw in ({"inner": "jacobi"}, {"inner_solver": "fcg"},
+               {"inner": "fem-amg"}):
         tsub.composite_dd(td, mk, poly_reduction=1, fine_mesh=tm, **kw)
+    two = copy.copy(td)
+    two.sharded = dataclasses.replace(td.sharded, num_shards=2)
+    for inner in ("amg", "fem-amg"):
+        with pytest.raises(NotImplementedError):
+            tsub.composite_dd(two, mk, poly_reduction=1, fine_mesh=tm,
+                              inner=inner)
+    with pytest.raises(NotImplementedError):
+        tpartition(tm, 2)
     with pytest.raises(ValueError):
         tsub.composite_dd(td, mk, poly_reduction=1, subdomain_overlap=3,
                           fine_mesh=tm)

@@ -152,9 +152,16 @@ def test_new_keywords_reject_what_the_reference_rejects(problem):
     with pytest.raises(ValueError):
         tsub.composite_dd(td, tb, poly_reduction=R, fine_mesh=tm,
                           far_coarsen=2)
-    with pytest.raises(NotImplementedError):
+    # the assembled FEM hierarchy builds on one shard; with an aligned
+    # far_coarsen > 1 both packages refuse it (it assumes fine layers)
+    assert tsub.composite_dd(td, tb, poly_reduction=R, fine_mesh=tm,
+                             inner="fem-amg").extra["amg"]["levels"]
+    with pytest.raises(ValueError):
+        jsub.composite_dd(jd, jb, poly_reduction=R, fine_mesh=jm,
+                          inner="fem-amg", far_coarsen=2)
+    with pytest.raises(ValueError):
         tsub.composite_dd(td, tb, poly_reduction=R, fine_mesh=tm,
-                          inner="fem-amg")
+                          inner="fem-amg", far_coarsen=2)
     with pytest.raises(ValueError):
         tsub.composite_dd(td, tb, poly_reduction=R, fine_mesh=tm,
                           inner="ilu")

@@ -61,6 +61,13 @@ _ISOLATED = textwrap.dedent("""
             dom.manufacture_rhs(u))
         assert bool(r2.converged), r2.residual_history
     assert len(stiffness_precision.run(16, device="cpu")) == 4
+    # the assembled FEM hierarchy: the native setup library and the
+    # sparse V-cycle, with JAX blocked
+    pre = composite_dd(dom, mk, poly_reduction=2, inner="fem-amg",
+                       fine_mesh=mesh)
+    r3 = dom.solver(method="fgmres", max_iterations=50, precond=pre)(
+        dom.manufacture_rhs(u))
+    assert bool(r3.converged), r3.residual_history
     assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
                    for k, v in sys.modules.items() if v is not None)
     print("modules", len(names), "iterations", res.iterations)

@@ -119,3 +119,49 @@ def test_tree_dot_bf16_sums_in_f32_rounds_once():
     assert abs(float(h[0]) - float(exact)) <= float(exact) * 2.0 ** -8
     assert float(krylov.tree_dot([a, b], [b, a])) == pytest.approx(
         2 * float(exact), rel=2.0 ** -7)
+
+
+@pytest.mark.parametrize("method,its", [("fcg", 40), ("fgmres", 18)])
+def test_absolute_tolerance_matches_reference(problem, method, its):
+    # use_relative=False: the solve stops under the tolerance itself, not
+    # under tolerance * ||r0|| (||r0|| = 21.7 here)
+    jd, td, u_j, f_j = problem
+    tol = 0.3
+    rj = jd.solver(method=method, max_iterations=400, tolerance=tol,
+                   use_relative=False)(f_j)
+    rt = td.solver(method=method, max_iterations=400, tolerance=tol,
+                   use_relative=False)(torch.as_tensor(np.array(f_j)))
+    assert bool(rt.converged) and bool(rj.converged)
+    assert rt.iterations == int(rj.iterations) == its
+    k = rt.iterations + 1
+    ht = rt.residual_history.numpy()
+    assert np.allclose(ht[:k], np.asarray(rj.residual_history)[:k],
+                       rtol=1e-9, atol=0.0)
+    assert ht[k - 1] < tol <= ht[k - 2] and ht[0] > 20 * tol
+    rel = td.solver(method=method, max_iterations=400, tolerance=tol)(
+        torch.as_tensor(np.array(f_j)))
+    assert rel.iterations < rt.iterations
+
+
+def test_precond_builder_matches_reference(problem):
+    # a bare builder (arrays, None, ops) -> (r -> z), used when precond is
+    # None: here the weighted dssum W QQt r, the same in both packages
+    jd, td, u_j, f_j = problem
+
+    def builder(arrays, extra, ops):
+        assert extra is None
+        return lambda r: ops[1](r, apply_mask=True, apply_weight=True)
+
+    rj = jd.solver(method="fgmres", max_iterations=400, tolerance=1e-3,
+                   precond_builder=builder)(f_j)
+    rt = td.solver(method="fgmres", max_iterations=400, tolerance=1e-3,
+                   precond_builder=builder)(torch.as_tensor(np.array(f_j)))
+    assert bool(rt.converged) and bool(rj.converged)
+    assert rt.iterations == int(rj.iterations)
+    k = rt.iterations + 1
+    assert np.allclose(rt.residual_history.numpy()[:k],
+                       np.asarray(rj.residual_history)[:k],
+                       rtol=1e-9, atol=0.0)
+    plain = td.solver(method="fgmres", max_iterations=400, tolerance=1e-3)(
+        torch.as_tensor(np.array(f_j)))
+    assert plain.iterations != rt.iterations
