@@ -50,6 +50,25 @@ Phases, each printing JSON lines (any failure exits non-zero):
            one solve under torch.profiler. Then the one-shard half of the
            dry-run's gate 4 (__graft_entry__.py): Kershaw (2, 2, 17) N=3,
            the bf16 hierarchy under FGMRES with a bf16 Z basis to 1e-6
+  spmd-ops P slab shards in one process (runtime/comm.LocalComm), f64, on
+           the 16^3 N=7 mesh at P = 1, 4, 5 (ragged) and 8 (slabs of 2):
+           the operator, the dssum (mask; weight; neither) and the
+           manufactured solution at P > 1 against P = 1 on the real
+           points, within 1e-13 of max and whether bitwise equal
+  spmd-gate1  dry-run gate 1 (__graft_entry__.py) on the card: Kershaw
+           (2, 2, 17) N=3 at P = 1 and 8, f64 FCG to 1e-6: the gate's
+           window on the counts and its history tolerances
+  spmd     the pmg path over P = 4 (uniform) and P = 5 (ragged) shards:
+           f32 FCG to 1e-4 with pmultigrid(poly_reduction=2,
+           smooth_damping=0.5), against the pmg phase's one-shard count and
+           launches per iteration; one P = 5 solve under torch.profiler;
+           f64 refinement of the P = 5 solve to 1e-10; FGMRES and FCG at
+           P = 5 with the fused operator + dssum against without
+The kernels phase also holds K1 on the spmd phase's P = 5 stacks at every
+level, (5, 32, 128, 128) n = 8 to (5, 8, 32, 32) n = 2, and K2 on the
+P = 5 and P = 4 stacks of the same levels, against their twins (K2 also
+against one launch per shard), K2's n = 8 stacks timed beside the
+one-lattice launch of the same bytes.
 Then one {"kernels": [...]} line (each kernel variant: its launches on
 the driven paths, error, warm and cold time, plain time, bound and the
 share of the bound it reaches: this run's numbers only), one
@@ -70,7 +89,7 @@ TPU_KERNELS = ("polynomial_reduction_with_full_domain_decomposition_"
                "preconditioner_tpu/ops/pallas_kernels.py")
 KERNEL_FILES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "stiffness_lattice_3d": ("stiffness.cu", TPU_KERNELS + ":295"),
-    "lattice_face_sum_3d": ("face_sum.cu", TPU_KERNELS + ":102"),
+    "lattice_face_sum_3d": ("face_sum.cu", TPU_KERNELS + ":103"),
     "stiffness_lattice_3d_split": (
         "stiffness_split.cu", "artifacts/bench_stiffness_precision.py:98"),
 }
@@ -266,16 +285,21 @@ def check_kernels(torch, kernels, dev):
     # a case is the element offset of its operands into a larger buffer
     odd = [((21, 14, 35), 7, 0), ((9, 6, 15), 3, 0), ((10, 15, 25), 5, 0),
            ((48, 40, 56), 8, 1), ((21, 14, 35), 7, 3)]
+    # the spmd phase's P = 5 stacks of every p-multigrid level (slabs of at
+    # most 4 layers), which the wrapper takes as their (5 * Mz, My, Mx)
+    # views; P = 4's views are the cubes above
+    stacks = [((5, 4 * m, 16 * m, 16 * m), m, 0) for m in (8, 6, 4, 2)]
+    flat = lambda t: t.reshape((-1,) + tuple(t.shape[-2:]))
     for shape, n, offset in [((128, 128, 128), 8, 0), ((48, 40, 56), 8, 0),
                              ((12, 10, 14), 2, 0)] + odd + [
-                                 (s, m, 0) for s, m in pmg_lattices]:
+                                 (s, m, 0) for s, m in pmg_lattices] + stacks:
         U64, G64 = rand(shape), [rand(shape) for _ in range(6)]
         for name, dt in dts.items():
             U, G = U64.to(dt), [g.to(dt) for g in G64]
             if offset:
                 U, G = offset_view(U, offset), [offset_view(g, offset) for g in G]
-            out = kernels.stiffness_lattice_3d(U, G, n)
-            ref = kernels.stiffness_lattice_3d_plain(U, G, n)
+            out = flat(kernels.stiffness_lattice_3d(U, G, n))
+            ref = kernels.stiffness_lattice_3d_plain(flat(U), [flat(g) for g in G], n)
             torch.cuda.synchronize()
             scale = ref.double().abs().max().item()
             err = (out.double() - ref.double()).abs().max().item()
@@ -287,7 +311,7 @@ def check_kernels(torch, kernels, dev):
             ok = err <= tol * scale
             if name == "bfloat16":
                 oracle = kernels.stiffness_lattice_3d_plain(
-                    U.double(), [g.double() for g in G], n)
+                    flat(U).double(), [flat(g).double() for g in G], n)
                 e64 = (out.double() - oracle).abs().max().item()
                 line["rel_err_vs_f64"] = e64 / oracle.abs().max().item()
                 ok = ok and e64 <= 0.05 * oracle.abs().max().item()
@@ -366,6 +390,71 @@ def check_kernels(torch, kernels, dev):
                     }
     check_split_kernel(torch, kernels, dev, timed)
     return timed, level_ms
+
+
+def check_face_sum_batched(torch, kernels, dev):
+    """K2 on stacks of slab shards (P = 5 ragged with zero padding, P = 4
+    uniform) at every p-multigrid level of the spmd phase, (P, 32, 128,
+    128) n = 8 down to (P, 8, 32, 32) n = 2, no mask or weight (the sharded
+    dssum's launch): bitwise against its twin and against P launches of
+    one lattice each, in bf16, f32 and f64. At n = 8 timed warm and cold
+    beside the (128, 128, 128) launch of the same bytes. Returns the timed
+    P = 5 stacks keyed by dtype."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_cold_ms, cuda_ms
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
+    one64 = torch.randn((128, 128, 128), generator=gen, device=dev,
+                        dtype=torch.float64)
+    batched = {}
+    for layers in ((4, 3, 3, 3, 3), (4, 4, 4, 4)):
+        P = len(layers)
+        for n in (8, 6, 4, 2):
+            U64 = torch.randn((P, 4 * n, 16 * n, 16 * n), generator=gen,
+                              device=dev, dtype=torch.float64)
+            for p, m in enumerate(layers):
+                U64[p, m * n:] = 0.0
+            for name, dt in dts.items():
+                U = U64.to(dt)
+                out = kernels.lattice_face_sum_3d(U, n)
+                ref = kernels.lattice_face_sum_3d_plain(U, n)
+                sep = torch.stack([kernels.lattice_face_sum_3d(U[p], n)
+                                   for p in range(P)])
+                torch.cuda.synchronize()
+                err = (out.double() - ref.double()).abs().max().item()
+                line = {"phase": "kernels", "kernel": "lattice_face_sum_3d",
+                        "shape": tuple(U.shape), "layers": layers, "n": n,
+                        "dtype": name, "mask_weight": [], "max_abs_err": err,
+                        "bitwise_vs_twin": bool(torch.equal(out, ref)),
+                        "bitwise_vs_one_launch_per_shard": bool(torch.equal(out, sep))}
+                line["ok"] = (line["bitwise_vs_twin"]
+                              and line["bitwise_vs_one_launch_per_shard"])
+                if n == 8:
+                    nbytes = 2 * U.numel() * U.element_size()
+                    line["ms"] = cuda_ms(lambda: kernels.lattice_face_sum_3d(U, n), 50)
+                    line["cold_ms"] = cuda_cold_ms(
+                        lambda: kernels.lattice_face_sum_3d(U, n), 20)
+                    line["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                    one = one64.to(dt)
+                    line["one_lattice_shape"] = (128, 128, 128)
+                    line["one_lattice_ms"] = cuda_ms(
+                        lambda: kernels.lattice_face_sum_3d(one, n), 50)
+                    line["one_lattice_cold_ms"] = cuda_cold_ms(
+                        lambda: kernels.lattice_face_sum_3d(one, n), 20)
+                    line["one_lattice_bound_ms"] = (
+                        2 * one.numel() * one.element_size()
+                        / HBM_BYTES_PER_S * 1e3)
+                emit(line)
+                if not line["ok"]:
+                    raise AssertionError(f"batched lattice_face_sum_3d disagrees: {line}")
+                if P == 5 and n == 8:
+                    batched[name] = {
+                        "shape": tuple(U.shape), "ms": line["ms"],
+                        "cold_ms": line["cold_ms"], "bound_ms": line["bound_ms"],
+                        "plain_ms": cuda_ms(
+                            lambda: kernels.lattice_face_sum_3d_plain(U, n), 3)}
+    return batched
 
 
 def profile_solve(torch, solve, f, phase="profile", top_n=12):
@@ -648,7 +737,8 @@ PMG_DAMPING = 0.5
 
 def run_pmg(torch, kernels, dom, mk, u_star, f):
     """The main-path mesh under f32 FCG to 1e-4 with p-multigrid (orders
-    7, 5, 3, 1) and with Jacobi; returns the two solves' launch counts.
+    7, 5, 3, 1) and with Jacobi; returns the two solves' launch counts and
+    the p-multigrid solve's line.
 
     The smoother's damping is 0.5, not pmultigrid's default 2/3: damped
     Jacobi needs omega * lambda_max(D^-1 A) < 2, and on this mesh
@@ -656,7 +746,7 @@ def run_pmg(torch, kernels, dom, mk, u_star, f):
     2/3 amplifies the top modes on every level visit. With the default
     neither package's p-multigrid beats Jacobi here (PERF.md)."""
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import jacobi, pmultigrid
-    total, its = {}, {}
+    total, its, lines = {}, {}, {}
     pmg_label = f"pmultigrid(poly_reduction=2, smooth_damping={PMG_DAMPING})"
     t0 = time.time()
     pres = {pmg_label: pmultigrid(dom, mk, poly_reduction=2,
@@ -693,6 +783,7 @@ def run_pmg(torch, kernels, dom, mk, u_star, f):
                 "residuals": [float(x) for x in hist[:4]],
                 "max_err": err, "launches": counts}
         emit(line)
+        lines[label] = line
         # at a relative residual of 1e-4 the error follows the tolerance:
         # p-multigrid ends near 0.02 of a solution in [0, 1], Jacobi near 0.1
         max_err = 0.05 if label == pmg_label else float("inf")
@@ -708,6 +799,254 @@ def run_pmg(torch, kernels, dom, mk, u_star, f):
     if not a < b // 2:
         raise AssertionError(f"p-multigrid took {a} iterations, Jacobi {b}: "
                              "not fewer than half")
+    return total, lines[pmg_label]
+
+
+def to_global(dom, u):
+    """A device field in global point order on the host, padding dropped."""
+    import numpy as np
+    sd = dom.sharded
+    v = dom.from_device_field(u).reshape(sd.num_shards, sd.elems_per_shard,
+                                         -1)
+    return np.concatenate([v[p][sd.elem_valid[p]]
+                           for p in range(sd.num_shards)]).ravel()
+
+
+SPMD_OPS_TOL = 1e-13   # of max: the JAX package's SPMD tests' bound
+
+
+def run_spmd_ops(torch, kernels, dev, mesh):
+    """The main-path mesh in f64 over P = 1, 4, 5 and 8 shards: the
+    operator, the dssum in its three forms and the manufactured solution at
+    P > 1 against P = 1 on the real points. Returns the launch counts."""
+    import numpy as np
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    total, ref = {}, None
+    for P in (1, 4, 5, 8):
+        t0 = time.time()
+        dom = Domain(partition_mesh(mesh, P), dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        kernels.reset_counts()
+        u = dom.initial_function(4, seed=7)
+        au = dom.apply_operator(u)
+        fields = {"initial_function": u, "operator": au}
+        for label, kw in (("dssum_mask", {}),
+                          ("dssum_weight", {"apply_weight": True}),
+                          ("dssum_neither", {"apply_mask": False})):
+            fields[label] = dom.dssum_field(au, **kw)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        add_counts(total, counts)
+        host = {k: to_global(dom, v) for k, v in fields.items()}
+        st = dom.sharded.structured
+        line = {"phase": "spmd-ops", "mesh": "kershaw eps=0.3 16^3 N=7 f64",
+                "shards": P, "layer_counts": st.layer_counts,
+                "ragged": st.ragged,
+                "fused_route": dom._ops()[0].fused_dssum is not None,
+                "field_shape": tuple(u.shape), "setup_seconds": setup_s,
+                "launches": counts}
+        ok = plain_calls(counts) == 0
+        if ref is None:
+            ref = host
+        else:
+            cmp = {}
+            for k, v in host.items():
+                gap = float(np.abs(v - ref[k]).max())
+                scale = float(np.abs(ref[k]).max())
+                cmp[k] = {"max_abs_gap": gap, "rel_gap": gap / scale,
+                          "bitwise": bool(np.array_equal(v, ref[k]))}
+                ok = ok and gap <= SPMD_OPS_TOL * scale
+            line["vs_one_shard"] = cmp
+            ok = ok and sum(counts["lattice_face_sum_3d_batched"].values()) > 0
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            raise AssertionError(f"sharded operators disagree: {line}")
+        del dom, u, au, fields
+    return total
+
+
+GATE1_RECORD = {"one_shard": 169, "eight_shards": 166}  # MULTICHIP_r05.json
+
+
+def run_spmd_gate1(torch, kernels, dev):
+    """Dry-run gate 1 (__graft_entry__.py:101-121) on the card: Kershaw
+    (2, 2, 17) N=3 with isotropic elements at P = 1 and 8 (slabs 3, 2,
+    ..., 2), unpreconditioned f64 FCG to 1e-6. Returns the launches."""
+    import numpy as np
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    mesh = kershaw_mesh((2, 2, 17), 3, epsilon=0.3, extent=(1.0, 1.0, 8.5),
+                        device=dev)
+    total, runs = {}, {}
+    for P in (1, 8):
+        dom = Domain(partition_mesh(mesh, P), dtype=torch.float64, device=dev)
+        u = dom.initial_function(4, seed=0)
+        f = dom.manufacture_rhs(u)
+        kernels.reset_counts()
+        res = dom.solver(method="fcg", max_iterations=800, tolerance=1e-6)(f)
+        torch.cuda.synchronize()
+        add_counts(total, kernels.counts())
+        h = res.residual_history.cpu().numpy()
+        runs[P] = (bool(res.converged), res.iterations, h[np.isfinite(h)],
+                   dom._ops()[0].fused_dssum is not None)
+    (c1, i1, h1, _), (c8, i8, h8, fused8) = runs[1], runs[8]
+    w = min(40, h1.size, h8.size)
+    rel12 = float(np.max(np.abs(h8[:12] - h1[:12]) / np.abs(h1[:12])))
+    relw = float(np.max(np.abs(h8[:w] - h1[:w]) / np.abs(h1[:w])))
+    line = {"phase": "spmd-gate1", "mesh": "kershaw eps=0.3 (2,2,17) N=3, "
+            "extent (1,1,8.5)", "method": "fcg f64 to 1e-6, no precond",
+            "iterations_one_shard": i1, "iterations_eight_shards": i8,
+            "record_iterations": GATE1_RECORD, "window": max(3, i1 // 20),
+            "history_max_rel_diff_12": rel12,
+            f"history_max_rel_diff_{w}": relw, "fused_route_8": fused8,
+            "launches": total}
+    line["ok"] = (c1 and c8 and abs(i8 - i1) <= max(3, i1 // 20)
+                  and rel12 <= 1e-6 and relw <= 1e-4 and fused8
+                  and plain_calls(total) == 0)
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"gate 1 failed on the card: {line}")
+    return total
+
+
+def run_spmd(torch, kernels, dev, mesh, mk, pmg_line):
+    """The pmg path over P = 4 and 5 slab shards at full width, held to
+    the one-shard pmg phase of this run (``pmg_line``); a profiled P = 5
+    solve, f64 refinement of the P = 5 solve and FGMRES and FCG at P = 5
+    with and without the fused operator + dssum. Returns the launches."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import pmultigrid
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.refine import refine_solve
+    total = {}
+    its1 = pmg_line["iterations"]
+    k1_1, k2_1 = pmg_line["k1_per_iteration"], pmg_line["k2_per_iteration"]
+    keep = {}
+    for P in (4, 5):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        sd = partition_mesh(mesh, P)
+        dom = Domain(sd, dtype=torch.float32, device=dev)
+        u_star = dom.initial_function(4, seed=0)
+        f = dom.manufacture_rhs(u_star)
+        pre = pmultigrid(dom, mk, poly_reduction=2, smooth_damping=PMG_DAMPING)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        solve = dom.solver(method="fcg", max_iterations=2000, precond=pre)
+        solve(f)                                   # warm-up
+        best = float("inf")
+        for _ in range(3):
+            kernels.reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = solve(f)
+            stop.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(stop) / 1e3)
+        counts = kernels.counts()
+        add_counts(total, counts)
+        its = res.iterations
+        err = (res.u - u_star).abs().max().item()
+        k1 = sum(counts["stiffness_lattice_3d"].values()) / max(its, 1)
+        k2 = sum(counts["lattice_face_sum_3d"].values()) / max(its, 1)
+        k2b = sum(counts["lattice_face_sum_3d_batched"].values()) / max(its, 1)
+        line = {"phase": "spmd", "mesh": "kershaw eps=0.3 16^3 N=7",
+                "shards": P, "layer_counts": sd.structured.layer_counts,
+                "ragged": sd.structured.ragged,
+                "fused_route": dom._ops()[0].fused_dssum is not None,
+                "field_shape": tuple(res.u.shape),
+                "precond": f"pmultigrid(poly_reduction=2, smooth_damping={PMG_DAMPING})",
+                "method": "fcg f32 to 1e-4", "setup_seconds": setup_s,
+                "iterations": its, "iterations_one_shard": its1,
+                "converged": bool(res.converged), "max_err": err,
+                "solve_seconds": best,
+                "solve_seconds_one_shard": pmg_line["solve_seconds"],
+                "ms_per_iteration": 1e3 * best / max(its, 1),
+                "k1_per_iteration": k1, "k2_per_iteration": k2,
+                "k2_batched_per_iteration": k2b,
+                "k1_per_iteration_one_shard": k1_1,
+                "k2_per_iteration_one_shard": k2_1,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": counts}
+        line["ok"] = (bool(res.converged) and abs(its - its1) <= 1
+                      and err < 0.05 and plain_calls(counts) == 0
+                      and abs(k1 - k1_1) <= 0.05 * k1_1
+                      and abs(k2 - k2_1) <= 0.05 * k2_1 and k2b > 0)
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"sharded pmg solve failed its checks: {line}")
+        keep[P] = (sd, dom, pre, solve, u_star, f)
+    sd, dom, pre, solve, u_star, f = keep[5]
+    del keep
+    emit(profile_solve(torch, solve, f, phase="spmd-profile", top_n=16))
+
+    dom64 = Domain(sd, dtype=torch.float64, device=dev)
+    u64 = dom64.to_device_field(dom.from_device_field(u_star))
+    f64 = dom64.manufacture_rhs(u64)
+    kernels.reset_counts()
+    t0 = time.time()
+    rr = refine_solve(dom64, solve, f64, tolerance=1e-10)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    add_counts(total, counts)
+    line = {"phase": "spmd-refine", "shards": 5,
+            "rel_residual": rr.rel_residual,
+            "max_error": (rr.u - u64).abs().max().item(), "cycles": rr.cycles,
+            "inner_iterations": rr.inner_iterations,
+            "seconds": time.time() - t0, "history": rr.history,
+            "launches": counts}
+    line["ok"] = rr.rel_residual <= 1e-10 and plain_calls(counts) == 0
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"sharded refinement failed its checks: {line}")
+    del dom64, u64, f64, rr
+
+    # the fused operator + dssum computes operator then dssum (one process
+    # holds every shard: nothing to overlap), so FGMRES must give the same
+    # history; held to rtol 1e-6, not the f64 tests' 1e-9, as f32. FCG
+    # with it carries the assembled residual, QQt r' = QQt r - alpha QQt q,
+    # which feeds only the residual norm: the iterates are the same
+    # operations on the same numbers (u bitwise where the counts agree),
+    # and the norms differ by the carried sum's f32 round-off, about half
+    # of k * eps_f32 of r0 after k steps (29 steps: 9e-7), held to 1e-5
+    for method in ("fgmres", "fcg"):
+        hists, its, us = {}, {}, {}
+        for overlap in (True, False):
+            kernels.reset_counts()
+            res = dom.solver(method=method, max_iterations=200, precond=pre,
+                             overlap=overlap)(f)
+            torch.cuda.synchronize()
+            add_counts(total, kernels.counts())
+            h = res.residual_history.cpu()
+            hists[overlap] = h[torch.isfinite(h)].double()
+            its[overlap], us[overlap] = res.iterations, res.u
+        k = min(hists[True].numel(), hists[False].numel())
+        gap = (hists[True][:k] - hists[False][:k]).abs()
+        rel = (gap / hists[False][:k].abs()).max().item()
+        line = {"phase": "spmd-overlap", "shards": 5,
+                "method": f"{method} f32 to 1e-4",
+                "iterations_overlap": its[True],
+                "iterations_no_overlap": its[False],
+                "history_max_rel_diff": rel,
+                "history_max_diff_of_r0": (gap / hists[False][0]).max().item(),
+                "bitwise": bool(torch.equal(hists[True], hists[False])),
+                "u_bitwise": bool(torch.equal(us[True], us[False])),
+                "u_max_err": (us[True] - u_star).abs().max().item()}
+        line["ok"] = abs(its[True] - its[False]) <= 1
+        if method == "fgmres":
+            line["ok"] = line["ok"] and rel <= 1e-6
+        else:
+            line["ok"] = (line["ok"] and line["history_max_diff_of_r0"] <= 1e-5
+                          and (its[True] != its[False] or line["u_bitwise"]))
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"fused and unfused {method} disagree: {line}")
+        del us
     return total
 
 
@@ -751,6 +1090,7 @@ def main():
     phase_done("env+build")
 
     timed, level_ms = check_kernels(torch, kernels, dev)
+    batched = check_face_sum_batched(torch, kernels, dev)
     phase_done("kernels")
     path_counts = {}       # launches summed over every driven path
     study_counts, study_512 = run_study(torch, kernels)
@@ -854,12 +1194,20 @@ def main():
     phase_done("refine")
     del dom64, u64, f64, rr
 
-    add_counts(path_counts, run_pmg(torch, kernels, dom, mk, u_star, f))
+    pmg_counts, pmg_line = run_pmg(torch, kernels, dom, mk, u_star, f)
+    add_counts(path_counts, pmg_counts)
     phase_done("pmg")
 
     add_counts(path_counts, run_femamg(torch, kernels, dev, dom, mesh, mk,
                                        u_star, f))
     phase_done("femamg")
+
+    add_counts(path_counts, run_spmd_ops(torch, kernels, dev, mesh))
+    phase_done("spmd-ops")
+    add_counts(path_counts, run_spmd_gate1(torch, kernels, dev))
+    phase_done("spmd-gate1")
+    add_counts(path_counts, run_spmd(torch, kernels, dev, mesh, mk, pmg_line))
+    phase_done("spmd")
 
     entries = []
     for (name, dt), t in sorted(timed.items()):
@@ -875,7 +1223,7 @@ def main():
         if t["cold_ms"] < t_bytes:
             raise AssertionError(f"{name}[{dt}]: cold time {t['cold_ms']} ms "
                                  f"is under its byte bound {t_bytes} ms")
-        entries.append({
+        entry = {
             "name": f"{name}[{dt}]", "route": "cuda",
             "source": f"{PKG}/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": t["max_abs_err"],
@@ -885,7 +1233,14 @@ def main():
             "library_ms": None,
             "cold_ms": t["cold_ms"],
             "share_of_bound": max(t_bytes, t_ops) / t["ms"],
-            "cold_share_of_bound": max(t_bytes, t_ops) / t["cold_ms"]})
+            "cold_share_of_bound": max(t_bytes, t_ops) / t["cold_ms"]}
+        if name == "lattice_face_sum_3d":
+            # the launches on stacks of slab shards, among "launches", and
+            # the stack of 5 timed in the kernels phase
+            entry["batched_launches"] = path_counts.get(
+                "lattice_face_sum_3d_batched", {}).get(dt, 0)
+            entry["batched"] = batched[dt]
+        entries.append(entry)
     # old against new, apart from the "kernels" line: prev_ms is a constant
     # of this file, ms is this run's warm time of the same launch
     now_ms = {(name, (128, 128, 128), dt): t["ms"]

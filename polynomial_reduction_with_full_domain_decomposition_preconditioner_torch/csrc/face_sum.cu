@@ -1,5 +1,6 @@
 // K2: one-pass structured face summation (direct stiffness summation on
-// one shard) on a (Mz, My, Mx) point lattice.
+// one shard) on a (Mz, My, Mx) point lattice, or on a batch of them: the
+// (B, Mz, My, Mx) stack of P slab shards, one lattice per shard.
 //
 // Replaces the Pallas TPU kernel of the JAX package (..._tpu/)
 //   ops/pallas_kernels.py::lattice_face_sum_3d (_face_sum_kernel)
@@ -47,6 +48,13 @@
 //   narrows the vector: there the time is one thread's chain of loads
 //   and sums, not the number of instructions.
 //
+// Batch: the B lattices are one launch over B * Mz planes. A plane's z
+// flags come from its index inside its own lattice (z % Mz), so no sum
+// crosses from one lattice into the next: each entry's result equals a
+// launch on that lattice alone, value for value. The shards' slab
+// boundaries are summed afterwards by the exchange
+// (runtime/comm.LocalComm.slab_exchange_add).
+//
 // Contract: the reference's association, x first, (U + hi*U[x+1]) +
 // lo*U[x-1], then y, then z, every add and multiply rounded on its own
 // (no FMA), f32 compute (f64 for f64), weight before mask, one cast. A
@@ -91,11 +99,12 @@ __global__ void __launch_bounds__(kMaxThreads) face_sum_kernel(const Tio* __rest
                                 const Tmw* __restrict__ weight,
                                 Tio* __restrict__ out, int mz, int my, int mx,
                                 int n) {
+  // mz: planes of one lattice; the grid's z runs over the whole batch
   using Acc = typename AccOf<Tio>::type;
   using AV = Vec<Acc, V>;
   const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * V;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int z = blockIdx.z;
+  const int z = blockIdx.z;   // plane of the batch
   if (x0 >= mx || y >= my) return;
   // this thread's V points along x: which add their right / left neighbour
   unsigned hi_bits = 0u, lo_bits = 0u;
@@ -110,7 +119,7 @@ __global__ void __launch_bounds__(kMaxThreads) face_sum_kernel(const Tio* __rest
     }
   }
   const bool need_left = lo_bits & 1u, need_right = (hi_bits >> (V - 1)) & 1u;
-  const unsigned f_y = row_flags(y, my, n), f_z = row_flags(z, mz, n);
+  const unsigned f_y = row_flags(y, my, n), f_z = row_flags(z % mz, mz, n);
   const int64_t idx = (static_cast<int64_t>(z) * my + y) * mx + x0;
 
   // every load first. Row [a][b] is the row at z + dz(a), y + dy(b) with
@@ -186,13 +195,14 @@ struct Plan {
 
 template <typename Tio, typename Tmw, int V>
 cudaError_t launch_v(const void* u, const void* mask, const void* weight,
-                     void* out, int64_t mz, int64_t my, int64_t mx, int n,
-                     const Plan& p, cudaStream_t stream) {
+                     void* out, int64_t batch, int64_t mz, int64_t my,
+                     int64_t mx, int n, const Plan& p, cudaStream_t stream) {
   const int64_t chunk = static_cast<int64_t>(p.tx) * V;
   const int64_t gx = (mx + chunk - 1) / chunk, gy = (my + p.by - 1) / p.by;
-  if (mx % V != 0 || gy > 65535 || mz > 65535) return cudaErrorInvalidValue;
+  const int64_t gz = batch * mz;
+  if (mx % V != 0 || gy > 65535 || gz > 65535) return cudaErrorInvalidValue;
   dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
-            static_cast<unsigned>(mz));
+            static_cast<unsigned>(gz));
   dim3 block(static_cast<unsigned>(p.tx), static_cast<unsigned>(p.by));
   face_sum_kernel<Tio, Tmw, V><<<grid, block, 0, stream>>>(
       static_cast<const Tio*>(u), static_cast<const Tmw*>(mask),
@@ -203,13 +213,13 @@ cudaError_t launch_v(const void* u, const void* mask, const void* weight,
 
 template <typename Tio, typename Tmw>
 cudaError_t launch(const void* u, const void* mask, const void* weight,
-                   void* out, int64_t mz, int64_t my, int64_t mx, int n,
-                   const Plan& p, cudaStream_t stream) {
+                   void* out, int64_t batch, int64_t mz, int64_t my,
+                   int64_t mx, int n, const Plan& p, cudaStream_t stream) {
   constexpr int kMaxVec = 16 / static_cast<int>(sizeof(Tio));
 #define PRFDD_FACE_SUM_V(V)                                                   \
   if constexpr (V <= kMaxVec)                                                 \
     if (p.vec == V)                                                           \
-      return launch_v<Tio, Tmw, V>(u, mask, weight, out, mz, my, mx, n, p, stream);
+      return launch_v<Tio, Tmw, V>(u, mask, weight, out, batch, mz, my, mx, n, p, stream);
   PRFDD_FACE_SUM_V(1)
   PRFDD_FACE_SUM_V(2)
   PRFDD_FACE_SUM_V(4)
@@ -220,12 +230,13 @@ cudaError_t launch(const void* u, const void* mask, const void* weight,
 
 template <typename Tio>
 cudaError_t launch_mw(int mw_dtype, const void* u, const void* mask,
-                      const void* weight, void* out, int64_t mz, int64_t my,
-                      int64_t mx, int n, const Plan& p, cudaStream_t stream) {
+                      const void* weight, void* out, int64_t batch, int64_t mz,
+                      int64_t my, int64_t mx, int n, const Plan& p,
+                      cudaStream_t stream) {
   switch (mw_dtype) {
-    case kBF16: return launch<Tio, __nv_bfloat16>(u, mask, weight, out, mz, my, mx, n, p, stream);
-    case kF32: return launch<Tio, float>(u, mask, weight, out, mz, my, mx, n, p, stream);
-    case kF64: return launch<Tio, double>(u, mask, weight, out, mz, my, mx, n, p, stream);
+    case kBF16: return launch<Tio, __nv_bfloat16>(u, mask, weight, out, batch, mz, my, mx, n, p, stream);
+    case kF32: return launch<Tio, float>(u, mask, weight, out, batch, mz, my, mx, n, p, stream);
+    case kF64: return launch<Tio, double>(u, mask, weight, out, batch, mz, my, mx, n, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -234,27 +245,29 @@ cudaError_t launch_mw(int mw_dtype, const void* u, const void* mask,
 }  // namespace prfdd
 
 // C interface: dtype / mw_dtype 0 bf16, 1 f32, 2 f64; mask and weight may
-// be null (then not applied). The launch plan comes from
+// be null (then not applied); batch lattices of mz x my x mx points each,
+// stored one after the other. The launch plan comes from
 // ops/kernels.py::_face_sum_plan: vec points per thread (every pointer and
 // the row pitch are multiples of the vector it implies) and a block of
 // tx threads along x times by rows. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a plan the card would refuse.
 extern "C" int prfdd_face_sum_3d(int dtype, int mw_dtype, int n, const void* u,
                                  const void* mask, const void* weight,
-                                 void* out, long long mz, long long my,
-                                 long long mx, int vec, int tx, int by,
-                                 void* stream) {
+                                 void* out, long long batch, long long mz,
+                                 long long my, long long mx, int vec, int tx,
+                                 int by, void* stream) {
   using namespace prfdd;
-  if (n < 1 || mz <= 0 || my <= 0 || mx <= 0 || mx > 2147483647LL ||
+  if (n < 1 || batch <= 0 || mz <= 0 || my <= 0 || mx <= 0 ||
+      mx > 2147483647LL ||
       vec < 1 || tx < 1 || by < 1 ||
       static_cast<long long>(tx) * by > kMaxThreads)
     return cudaErrorInvalidValue;
   const Plan p{vec, tx, by};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kBF16: return launch_mw<__nv_bfloat16>(mw_dtype, u, mask, weight, out, mz, my, mx, n, p, st);
-    case kF32: return launch_mw<float>(mw_dtype, u, mask, weight, out, mz, my, mx, n, p, st);
-    case kF64: return launch_mw<double>(mw_dtype, u, mask, weight, out, mz, my, mx, n, p, st);
+    case kBF16: return launch_mw<__nv_bfloat16>(mw_dtype, u, mask, weight, out, batch, mz, my, mx, n, p, st);
+    case kF32: return launch_mw<float>(mw_dtype, u, mask, weight, out, batch, mz, my, mx, n, p, st);
+    case kF64: return launch_mw<double>(mw_dtype, u, mask, weight, out, batch, mz, my, mx, n, p, st);
     default: return cudaErrorInvalidValue;
   }
 }

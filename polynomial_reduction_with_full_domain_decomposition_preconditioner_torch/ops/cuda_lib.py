@@ -116,7 +116,7 @@ def load() -> ctypes.CDLL:
     lib.prfdd_stiffness_split_blocks_per_sm.argtypes = ([i32] * 4
                                                         + [ctypes.POINTER(i32)])
     lib.prfdd_stiffness_split_blocks_per_sm.restype = i32
-    lib.prfdd_face_sum_3d.argtypes = ([i32, i32, i32] + [vp] * 4 + [i64] * 3
+    lib.prfdd_face_sum_3d.argtypes = ([i32, i32, i32] + [vp] * 4 + [i64] * 4
                                       + [i32] * 3 + [vp])
     lib.prfdd_face_sum_3d.restype = i32
     return lib

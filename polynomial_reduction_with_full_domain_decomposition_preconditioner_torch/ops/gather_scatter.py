@@ -1,10 +1,20 @@
-"""Direct stiffness summation (dssum) on the structured point lattice.
+"""Direct stiffness summation (dssum): the gather-scatter of the SEM.
 
-Port of the structured, one-shard half of the JAX package's
-``ops/gather_scatter.py``. A 3-D face sum runs through the hand-written
-kernel ``ops/kernels.lattice_face_sum_3d`` with the Dirichlet mask and the
-inverse-multiplicity weight fused in; the roll form below is its plain
-arithmetic (``axes`` given, or not 3-D).
+Port of the JAX package's ``ops/gather_scatter.py``. Two routes:
+
+- The structured lattice route. A 3-D face sum runs through the
+  hand-written kernel ``ops/kernels.lattice_face_sum_3d``. On one shard
+  the Dirichlet mask and the inverse-multiplicity weight are fused into
+  that one pass. On P slab shards, stacked as (P, Mz, My, Mx), one
+  batched launch sums every shard's own faces, the comm's slab exchange
+  adds the neighbouring shards' boundary planes in place, and the weight
+  and the mask follow, in the JAX package's order.
+- The generic route, for any partition: scatter points to each shard's
+  local nodes (Qt), sum the interface nodes across shards with one psum
+  of a compact interface vector, gather back to points (Q).
+
+Sharded arrays carry the leading shard axis; the collectives are those of
+a ``runtime/comm`` object (None: one shard, nothing to exchange).
 """
 
 from __future__ import annotations
@@ -14,7 +24,52 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["lattice_face_sum", "structured_dssum"]
+__all__ = ["lattice_face_sum", "structured_dssum", "scatter_to_nodes",
+           "gather_to_points", "exchange", "dssum"]
+
+
+def scatter_to_nodes(u_pts, gather_ids, num_local_nodes: int):
+    """Qt apply: sum point values into local unique nodes, along the last
+    axis. The result has num_local_nodes + 1 entries; the last is the
+    trash node that absorbs padding points. gather_ids are int64."""
+    out = u_pts.new_zeros(u_pts.shape[:-1] + (num_local_nodes + 1,))
+    return out.scatter_add_(-1, gather_ids, u_pts)
+
+
+def gather_to_points(w_nodes, gather_ids):
+    """Q apply: read node values back to points."""
+    return torch.gather(w_nodes, -1, gather_ids)
+
+
+def exchange(w_nodes, bnode_local, bnode_global, num_boundary_global: int,
+             comm):
+    """Sum the interface nodes' values across shards: each shard adds its
+    values into a compact interface vector (num_boundary_global + 1
+    entries, the last a trash slot), one psum sums the shards' vectors,
+    and each shard reads its interface nodes back from the sum."""
+    if comm is None or num_boundary_global == 0:
+        return w_nodes
+    buf = w_nodes.new_zeros(w_nodes.shape[:-1] + (num_boundary_global + 1,))
+    buf.scatter_add_(-1, bnode_global, torch.gather(w_nodes, -1, bnode_local))
+    total = comm.psum(buf)
+    return w_nodes.scatter(-1, bnode_local, total[bnode_global])
+
+
+def dssum(u_pts, *, gather_ids, mask, inv_degree, bnode_local, bnode_global,
+          num_local_nodes: int, num_boundary_global: int, comm,
+          apply_mask: bool = True, apply_weight: bool = False):
+    """Generic direct stiffness summation QQt on point fields (P, E*npe).
+    apply_weight multiplies the node sums by 1/multiplicity before the
+    exchange (the weight is the same on every shard, so this equals
+    weighting after the sum)."""
+    w = scatter_to_nodes(u_pts, gather_ids, num_local_nodes)
+    if apply_weight:
+        w = w * inv_degree
+    w = exchange(w, bnode_local, bnode_global, num_boundary_global, comm)
+    out = gather_to_points(w, gather_ids)
+    if apply_mask:
+        out = out * mask
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,14 +103,30 @@ def lattice_face_sum(U, n: int, axes=None):
 
 
 def structured_dssum(U, *, n: int, dim: int, mask, inv_degree_pts,
-                     apply_mask: bool = True, apply_weight: bool = False):
-    """Direct stiffness summation on a one-shard structured lattice: face
-    sum, then x inverse multiplicity (apply_weight), then x Dirichlet
-    mask (apply_mask), fused into one kernel pass."""
+                     comm=None, apply_mask: bool = True,
+                     apply_weight: bool = False, top_plane=None):
+    """Direct stiffness summation on a structured lattice: face sum, then
+    x inverse multiplicity (apply_weight), then x Dirichlet mask
+    (apply_mask).
+
+    One shard (comm None or of size 1): a (Mz, My, Mx) lattice, the three
+    fused into one kernel pass. P shards: a (P, Mz, My, Mx) stack, one
+    batched face-sum launch for all shards, then the comm's slab exchange
+    (with the per-shard ``top_plane`` on ragged partitions), then the weight,
+    then the mask. Every input field must be zero at pad points; mask and
+    weight are zero there, so outputs keep that.
+    """
     if dim != 3:
         raise NotImplementedError("the port's dssum is 3-D")
     from .kernels import lattice_face_sum_3d
-    return lattice_face_sum_3d(
-        U, n,
-        mask=mask if apply_mask else None,
-        weight=inv_degree_pts if apply_weight else None)
+    if comm is None or comm.size <= 1:
+        return lattice_face_sum_3d(
+            U, n,
+            mask=mask if apply_mask else None,
+            weight=inv_degree_pts if apply_weight else None)
+    U = comm.slab_exchange_add(lattice_face_sum_3d(U, n), top_plane)
+    if apply_weight:
+        U.mul_(inv_degree_pts)
+    if apply_mask:
+        U.mul_(mask)
+    return U

@@ -14,7 +14,14 @@ __all__ = ["lattice_tensor_apply", "axis_contract"]
 
 def lattice_tensor_apply(U, M, dim: int):
     """Apply the 1-D operator M (n_out, n_in) per element along every axis
-    of a point lattice; returns the lattice at order n_out."""
+    of a point lattice, or of each lattice of a (P, ...) stack of slab
+    shards (one pass over the element-aligned (P*Mz, ...) view); returns
+    the lattice at order n_out."""
+    if U.dim() == dim + 1:
+        P = U.shape[0]
+        V = lattice_tensor_apply(U.reshape((-1,) + tuple(U.shape[2:])), M,
+                                 dim)
+        return V.reshape((P, -1) + tuple(V.shape[1:]))
     n_in = M.shape[1]
     for axis in range(dim):
         U = dmul(M, U, axis, n_in)

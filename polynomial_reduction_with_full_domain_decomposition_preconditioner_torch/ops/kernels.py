@@ -8,7 +8,9 @@ named after K1) and has a plain PyTorch twin,
 plain twin; a CUDA tensor goes to the kernel (csrc/*.cu, built on first
 use by ops/cuda_lib.py) or raises — there is no fallback.
 
-Every wrapper counts its kernel launches per I/O dtype in ``.launches``;
+Every wrapper counts its kernel launches per I/O dtype in ``.launches``
+(K2 also counts, in ``.batched_launches``, which of them took a stack of
+shards);
 each plain twin counts its calls in ``.calls``, so a run on the card can
 show that it went through the kernels and never through a plain twin.
 """
@@ -58,14 +60,18 @@ def _diff(n: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(diff_matrix(n), dtype=dtype, device=device)
 
 
-def _check_lattice(name, U, n, others):
+def _check_lattice(name, U, n, others, batched=False):
+    """A CUDA lattice (Mz, My, Mx), or with ``batched`` also a stack
+    (B, Mz, My, Mx) of them, that the kernel takes."""
     if U.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {U.device} have no kernel")
-    if U.dim() != 3:
-        raise ValueError(f"{name}: need a 3-D (Mz, My, Mx) lattice, got {tuple(U.shape)}")
+    if U.dim() != 3 and not (batched and U.dim() == 4):
+        raise ValueError(f"{name}: need a 3-D (Mz, My, Mx) lattice"
+                         f"{' or a (B, Mz, My, Mx) stack' if batched else ''}"
+                         f", got {tuple(U.shape)}")
     if U.dtype not in _CODE:
         raise TypeError(f"{name}: unsupported dtype {U.dtype}")
-    if any(m % n for m in U.shape):
+    if any(m % n for m in U.shape[-3:]):
         raise ValueError(f"{name}: lattice {tuple(U.shape)} is not element-aligned for n={n}")
     for o in others:
         if o.shape != U.shape or o.device != U.device or not o.is_contiguous():
@@ -197,7 +203,15 @@ def stiffness_lattice_3d(U, G, n: int):
     """One-pass fused SEM stiffness apply on a (Mz, My, Mx) lattice with
     the six factor lattices G (G_rr, G_ss, G_tt, G_rs, G_rt, G_st), all
     of U's dtype (bf16, f32 or f64); any element-aligned shape, n = 2..8.
+
+    A (P, Mz, My, Mx) stack of slab shards is taken as its (P*Mz, My, Mx)
+    view: each shard is a whole number of elements in z and the apply is
+    element-local, so one launch gives every shard's own apply.
     """
+    if U.dim() == 4:
+        flat = lambda t: t.reshape((-1,) + tuple(t.shape[2:]))
+        return stiffness_lattice_3d(flat(U), [flat(g) for g in G],
+                                    n).view(U.shape)
     if U.device.type == "cpu":
         return stiffness_lattice_3d_plain(U, G, n)
     if len(G) != 6:
@@ -447,12 +461,15 @@ def split_blocks_per_sm(dtype, plan: SplitPlan) -> int:
 
 
 def lattice_face_sum_3d_plain(U, n: int, mask=None, weight=None):
-    """The roll form with axes (2, 1, 0) in f32 (f64 for f64 I/O), then
+    """The roll form along x, y, z in f32 (f64 for f64 I/O), then
     x weight, then x mask, then one cast to U's dtype — the kernel's
-    exact arithmetic, so f32/f64/bf16 results are bitwise equal."""
+    exact arithmetic, so f32/f64/bf16 results are bitwise equal. A
+    (B, Mz, My, Mx) stack sums each lattice on its own (the rolls wrap
+    inside an entry, where the flags are 0)."""
     lattice_face_sum_3d_plain.calls.add(U.dtype)
     acc = _acc_dtype(U.dtype)
-    R = lattice_face_sum(U.to(acc), n, axes=(2, 1, 0))
+    d = U.dim()
+    R = lattice_face_sum(U.to(acc), n, axes=(d - 1, d - 2, d - 3))
     if weight is not None:
         R = R * weight.to(acc)
     if mask is not None:
@@ -534,23 +551,28 @@ def _face_sum_plan_of(shape, n, itemsize, mw_itemsize, ptrs, mw_ptrs):
 
 
 def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
-    """One-pass fused face summation on a (Mz, My, Mx) lattice, with the
-    optional same-shape ``weight`` and ``mask`` multiplied in before the
-    single output cast. mask and weight share one dtype, which may differ
-    from U's (an f32 field carries a bf16 mask and weight)."""
+    """One-pass fused face summation on a (Mz, My, Mx) lattice, or on each
+    lattice of a (B, Mz, My, Mx) stack in one launch (no sum crosses from
+    one entry into the next), with the optional same-shape ``weight`` and
+    ``mask`` multiplied in before the single output cast. mask and weight
+    share one dtype, which may differ from U's (an f32 field carries a
+    bf16 mask and weight)."""
     if U.device.type == "cpu":
         return lattice_face_sum_3d_plain(U, n, mask=mask, weight=weight)
     mw = [t for t in (mask, weight) if t is not None]
-    _check_lattice("lattice_face_sum_3d", U, n, mw)
+    _check_lattice("lattice_face_sum_3d", U, n, mw, batched=True)
     if len({t.dtype for t in mw}) > 1 or any(t.dtype not in _CODE for t in mw):
         raise TypeError("lattice_face_sum_3d: mask and weight need one "
                         "dtype among bf16, f32, f64")
     out = torch.empty_like(U)
     if U.numel() == 0:
         return out
-    mz, my, mx = U.shape
+    batch = U.shape[0] if U.dim() == 4 else 1
+    mz, my, mx = U.shape[-3:]
     mw_dtype = mw[0].dtype if mw else U.dtype
-    plan = _face_sum_plan(U.shape, n, U.element_size(), mw_dtype.itemsize,
+    # the plan sees the batch as one lattice of batch * mz planes
+    plan = _face_sum_plan((batch * mz, my, mx), n, U.element_size(),
+                          mw_dtype.itemsize,
                           (U.data_ptr(), out.data_ptr()),
                           [t.data_ptr() for t in mw])
     with torch.cuda.device(U.device):
@@ -559,15 +581,20 @@ def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
             _CODE[U.dtype], _CODE[mw_dtype], n, U.data_ptr(),
             None if mask is None else mask.data_ptr(),
             None if weight is None else weight.data_ptr(),
-            out.data_ptr(), mz, my, mx, plan.vec, plan.tx, plan.by, stream)
+            out.data_ptr(), batch, mz, my, mx, plan.vec, plan.tx, plan.by,
+            stream)
     _raise_on(err, "lattice_face_sum_3d")
     lattice_face_sum_3d.launches.add(U.dtype)
+    if U.dim() == 4:
+        lattice_face_sum_3d.batched_launches.add(U.dtype)
     return out
 
 
 stiffness_lattice_3d.launches = LaunchCount()
 stiffness_lattice_3d_split.launches = LaunchCount()
 lattice_face_sum_3d.launches = LaunchCount()
+# the launches on (B, Mz, My, Mx) stacks among lattice_face_sum_3d's
+lattice_face_sum_3d.batched_launches = LaunchCount()
 stiffness_lattice_3d_plain.calls = LaunchCount()
 stiffness_lattice_3d_split_plain.calls = LaunchCount()
 lattice_face_sum_3d_plain.calls = LaunchCount()
@@ -575,6 +602,7 @@ _COUNTS = {
     "stiffness_lattice_3d": stiffness_lattice_3d.launches,
     "stiffness_lattice_3d_split": stiffness_lattice_3d_split.launches,
     "lattice_face_sum_3d": lattice_face_sum_3d.launches,
+    "lattice_face_sum_3d_batched": lattice_face_sum_3d.batched_launches,
     "stiffness_lattice_3d_plain": stiffness_lattice_3d_plain.calls,
     "stiffness_lattice_3d_split_plain": stiffness_lattice_3d_split_plain.calls,
     "lattice_face_sum_3d_plain": lattice_face_sum_3d_plain.calls,

@@ -6,6 +6,10 @@ runs through the hand-written kernel ``ops/kernels.stiffness_lattice_3d``
 contraction used by the plain forms and by setup code. The result is the
 non-assembled (local) operator image; direct stiffness summation is a
 separate op (ops/gather_scatter.py).
+
+Both forms also take a (P, Mz, My, Mx) stack of slab shards: every shard
+is a whole number of elements in z and both are element-local, so they
+run once on the contiguous (P*Mz, My, Mx) view.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ def dmul(D, U, axis: int, n: int):
 
 
 def stiffness_apply_lattice(U, G, D, dim: int):
-    """SEM stiffness apply on a (Mz, My, Mx) lattice with G the tuple of
-    six per-factor lattices (G_rr, G_ss, G_tt, G_rs, G_rt, G_st).
+    """SEM stiffness apply on a (Mz, My, Mx) lattice, or a (P, Mz, My,
+    Mx) stack, with G the tuple of six per-factor lattices of U's shape
+    (G_rr, G_ss, G_tt, G_rs, G_rt, G_st).
 
     3-D runs the fused kernel (ops/kernels.stiffness_lattice_3d), which
     takes its differentiation matrix from the GLL tables of order
@@ -48,6 +53,10 @@ def stiffness_diagonal_lattice(G, D, dim: int):
     only). bf16/f16 factors are summed in f32 and rounded once."""
     if dim != 3:
         raise NotImplementedError("the port's operator is 3-D")
+    if G[0].dim() == 4:
+        stacked = G[0].shape
+        flat = [g.reshape((-1,) + tuple(stacked[2:])) for g in G]
+        return stiffness_diagonal_lattice(flat, D, dim).view(stacked)
     out_dtype = G[0].dtype
     acc = torch.float32 if out_dtype in (torch.bfloat16, torch.float16) \
         else out_dtype

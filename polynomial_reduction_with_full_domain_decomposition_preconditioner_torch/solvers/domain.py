@@ -1,10 +1,18 @@
 """The fine-level SEM Poisson problem ("Domain" layer).
 
-Port of the JAX package's ``solvers/domain.py`` for one device and a
-structured slab lattice: the device-resident geometry, the matrix-free
-operator (kernel K1), the structured dssum (kernel K2), the outer Krylov
-solves, manufactured solutions and the host <-> device field layout.
-Fields are (Mz, My, Mx) tensors on ``device`` (None: the card).
+Port of the JAX package's ``solvers/domain.py`` for a structured slab
+lattice: the device-resident geometry, the matrix-free operator (kernel
+K1), the structured dssum (kernel K2, and the slab exchange across
+shards), the outer Krylov solves, manufactured solutions and the host <->
+device field layout.
+
+One shard: fields are (Mz, My, Mx) tensors, as the JAX package's
+single-device Domain holds them. P > 1 shards (the JAX package's SPMD
+Domain under ``jax.shard_map``): the shard-local code runs once on
+stacked tensors, fields (P, Mz, My, Mx) with every slab padded to the
+largest and zero at padding, and the collectives come from a
+``runtime/comm`` object (``LocalComm(P)``: all P shards in this process,
+as the card runs them). Tensors live on ``device`` (None: the card).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from ..mesh.layout import elements_to_lattice, lattice_to_elements
 from ..mesh.partition import ShardedDomain
 from ..ops import gather_scatter as gs
 from ..ops import sem
+from ..runtime.comm import LocalComm
 from ..utils.gll import diff_matrix
 from . import krylov
 
@@ -28,53 +37,85 @@ __all__ = ["Domain"]
 @dataclass
 class DomainArrays:
     """Device-resident state: geometry as a tuple of 6 per-factor
-    lattices, the Dirichlet mask and inverse multiplicities (lattices),
-    and the differentiation matrix."""
+    lattices, the Dirichlet mask and inverse multiplicities (lattices; all
+    stacked over the shards when P > 1), the differentiation matrix, and
+    each shard's real slab layers (P,)."""
     geom: tuple
     mask: torch.Tensor
     inv_degree_pts: torch.Tensor
     D: torch.Tensor
+    layers: torch.Tensor
+
+
+def top_planes(layers, n: int, planes: int):
+    """Each shard's real top-plane index at order n - 1 on a ragged slab
+    partition: layers * n - 1, which a shard with no layers reads as its
+    last plane (the JAX package's dynamic index wraps -1)."""
+    return torch.remainder(layers * n - 1, planes)
 
 
 class Domain:
-    """User-facing fine-level problem on one device.
+    """User-facing fine-level problem.
 
     Args:
-      sharded: host partition (mesh/partition.partition_mesh, one shard).
+      sharded: host partition (mesh/partition.partition_mesh), structured.
       dtype: solver precision (torch.float32 or torch.float64).
       device: None for the card (raises without CUDA), or e.g. "cpu".
+      comm: the collectives over the shards (runtime/comm.py); default
+        ``LocalComm(sharded.num_shards)``. Its size must equal the shard
+        count.
     """
 
     def __init__(self, sharded: ShardedDomain, *, dtype=torch.float32,
-                 device=None):
-        if sharded.structured is None or sharded.num_shards != 1:
+                 device=None, comm=None):
+        if sharded.structured is None:
             raise NotImplementedError(
-                "the port's Domain is one structured shard so far")
+                "a Domain on a structured=False partition needs the "
+                "element-layout operator, ROADMAP item 13")
         if sharded.dim != 3:
             raise NotImplementedError("the port's Domain is 3-D")
+        P = sharded.num_shards
+        self.comm = LocalComm(P) if comm is None else comm
+        if self.comm.size != P:
+            raise ValueError(f"the comm has {self.comm.size} shards but the "
+                             f"domain has {P}")
         self.device = resolve_device(device)
         self.sharded = sharded
         self.dtype = dtype
         self.dim = sharded.dim
         self.poly_degree = sharded.poly_degree
+        self.spmd = P > 1
+        self.ragged = sharded.structured.ragged
         n = sharded.poly_degree + 1
         self.local_grid = sharded.structured.local_grid()
         self.lattice_shape = tuple(g * n for g in self.local_grid)
 
-        lat = self._host_elem_to_lattice(sharded.geom[0])
+        lat = [self._host_elem_to_lattice(g) for g in sharded.geom]
+        geom = [np.stack([l[..., k] for l in lat])
+                for k in range(sharded.geom.shape[-1])]
+        del lat
+        stack = lambda a: np.stack([self._host_elem_to_lattice(x) for x in a])
         # mask is 0/1 and the structured inverse multiplicities are powers
         # of two, exact in bf16: an f32 domain stores them half-width
         small = torch.bfloat16 if dtype == torch.float32 else dtype
-        put = lambda a, dt: torch.as_tensor(
-            np.ascontiguousarray(a), device=self.device).to(dt)
         self.arrays = DomainArrays(
-            geom=tuple(put(lat[..., k], dtype) for k in range(lat.shape[-1])),
-            mask=put(self._host_elem_to_lattice(sharded.dirichlet_mask[0]),
-                     small),
-            inv_degree_pts=put(self._host_elem_to_lattice(
-                sharded.inv_degree_pts[0]), small),
-            D=put(diff_matrix(n), dtype),
+            geom=tuple(self.shard_put(g, dtype) for g in geom),
+            mask=self.shard_put(stack(sharded.dirichlet_mask), small),
+            inv_degree_pts=self.shard_put(stack(sharded.inv_degree_pts),
+                                          small),
+            D=torch.as_tensor(diff_matrix(n), device=self.device).to(dtype),
+            layers=torch.as_tensor(sharded.structured.layer_counts,
+                                   dtype=torch.int64, device=self.device),
         )
+        self._top = (top_planes(self.arrays.layers, n, self.lattice_shape[0])
+                     if self.spmd and self.ragged else None)
+
+    def shard_put(self, stacked, dtype=None):
+        """A per-shard host array (leading axis = shards) -> a device
+        tensor: the one shard squeezed when P = 1, the stack otherwise."""
+        x = np.ascontiguousarray(stacked if self.spmd else stacked[0])
+        t = torch.as_tensor(x, device=self.device)
+        return t if dtype is None else t.to(dtype)
 
     # ---- layout conversion (host, numpy) ----
 
@@ -89,9 +130,14 @@ class Domain:
     # ---- closure builders ----
 
     def _ops(self):
-        """(operator, dssum, dot, dot2) closures over the device arrays."""
+        """(operator, dssum, dot, dot2) closures over the device arrays.
+        ``operator.fused_dssum`` is the fused p -> (A p, QQt A p) where the
+        JAX package builds one (SPMD, and ragged or slabs of >= 3 layers),
+        else None."""
         a = self.arrays
         n = self.poly_degree + 1
+        comm = self.comm if self.spmd else None
+        top = self._top
 
         def operator(u):
             return sem.stiffness_apply_lattice(u, a.geom, a.D, self.dim)
@@ -99,22 +145,41 @@ class Domain:
         def dssum(u, apply_mask=True, apply_weight=False):
             return gs.structured_dssum(
                 u, n=n, dim=self.dim, mask=a.mask,
-                inv_degree_pts=a.inv_degree_pts, apply_mask=apply_mask,
-                apply_weight=apply_weight)
+                inv_degree_pts=a.inv_degree_pts, comm=comm,
+                apply_mask=apply_mask, apply_weight=apply_weight,
+                top_plane=top)
 
         def dot(x, y):
-            return krylov.tree_dot(x, y)
+            return krylov.tree_dot(x, y, self.comm)
 
         def dot2(x, y, z, w):
-            return krylov.tree_dot(x, y), krylov.tree_dot(z, w)
+            # one reduction of both local dots over the processes
+            return self.comm.allreduce(krylov.tree_dot(x, y),
+                                       krylov.tree_dot(z, w))
 
+        op_dssum = None
+        if self.spmd and (self.ragged
+                          or self.sharded.structured.slab_elems >= 3):
+            # the JAX package computes the boundary layers first, starts
+            # the slab ppermutes on their planes and overlaps them with the
+            # interior apply, bitwise equal to operator then dssum. One
+            # process holding every shard has no asynchronous exchange to
+            # hide, so this is the full apply and the dssum; the split
+            # with the exchange on its own stream belongs to the
+            # torch.distributed backend (ROADMAP item 10c). The route is
+            # the JAX package's, because FCG's numbers depend on it.
+            def op_dssum(z, apply_mask=True):
+                q = operator(z)
+                return q, dssum(q, apply_mask=apply_mask)
+
+        operator.fused_dssum = op_dssum
         return operator, dssum, dot, dot2
 
     # ---- solvers ----
 
     def solver(self, method="fcg", precond=None, precond_builder=None,
                max_iterations=500, num_vectors=20, tolerance=None,
-               use_relative=True, z_dtype=None):
+               use_relative=True, overlap=True, z_dtype=None):
         """A solve function f -> KrylovResult, converging to ``tolerance``
         times the initial residual norm (``use_relative``, the default) or
         to the absolute ``tolerance``.
@@ -124,12 +189,16 @@ class Domain:
         precond_builder: used when ``precond`` is None — a bare builder
           with no extra arrays, builder(arrays, None, ops) -> (r -> z).
           With neither, the unpreconditioned path z = QQt r with mask.
+        overlap: give the solver the fused operator + dssum where the
+          Domain has one (``_ops``); FCG then carries the assembled
+          residual.
         z_dtype: FGMRES only — storage dtype of the flexible Z basis.
         """
         if tolerance is None:
             tolerance = 1.0e-7 if self.dtype == torch.float64 else 1.0e-4
         operator, dssum, dot, dot2 = self._ops()
         ops = (operator, dssum, dot, dot2)
+        fused = operator.fused_dssum if overlap else None
 
         def dssum_plain(r):
             return dssum(r, apply_mask=True, apply_weight=False)
@@ -144,39 +213,50 @@ class Domain:
             return lambda f: krylov.fcg(
                 operator, pre, dssum_plain, dot, dot2, f,
                 max_iterations=max_iterations, tolerance=tolerance,
-                use_relative=use_relative)
+                use_relative=use_relative, op_dssum=fused)
         if method == "fgmres":
             return lambda f: krylov.fgmres(
                 operator, pre, dssum_plain, dot, f,
                 max_iterations=max_iterations, num_vectors=num_vectors,
                 tolerance=tolerance, use_relative=use_relative,
-                z_dtype=z_dtype)
+                op_dssum=fused, z_dtype=z_dtype)
         raise ValueError(f"unknown method {method!r}")
 
     # ---- fields and manufactured solutions ----
 
     def points_shape(self):
-        """Host-field shape: (points,)."""
-        return (self.sharded.points_per_shard,)
+        """Host-field shape: (points,) on one shard, (P, points) else."""
+        st = self.sharded
+        if self.spmd:
+            return (st.num_shards, st.points_per_shard)
+        return (st.points_per_shard,)
 
     @property
     def field_shape(self):
+        """One shard's device lattice shape."""
         return self.lattice_shape
 
     def to_device_field(self, host_field: np.ndarray):
-        """Element-ordered host values -> (Mz, My, Mx) device field."""
-        vals = np.asarray(host_field).reshape(-1)
-        lat = self._host_elem_to_lattice(vals)
-        return torch.as_tensor(np.ascontiguousarray(lat),
-                               device=self.device).to(self.dtype)
+        """Element-ordered host values, (P, E*npe) or flat -> the device
+        field, (Mz, My, Mx) on one shard and (P, Mz, My, Mx) else. Pad
+        points are zeroed: device fields are zero at padding."""
+        st = self.sharded
+        vals = np.asarray(host_field).reshape(st.num_shards, -1)
+        if self.spmd:
+            vals = np.where(np.repeat(st.elem_valid, st.num_points_per_elem,
+                                      axis=1), vals, 0.0)
+        lat = np.stack([self._host_elem_to_lattice(v) for v in vals])
+        return self.shard_put(lat, self.dtype)
 
     def from_device_field(self, u) -> np.ndarray:
-        """Device field -> element-ordered host values, shape (1, E*npe)."""
+        """Device field -> element-ordered host values, shape (P, E*npe)."""
         vals = u.detach()
         if vals.dtype in (torch.bfloat16, torch.float16):
             vals = vals.float()
-        vals = vals.cpu().numpy().reshape(self.field_shape)
-        return self._host_lattice_to_elem(vals).reshape(1, -1)
+        P = self.sharded.num_shards
+        vals = vals.cpu().numpy().reshape((P,) + self.field_shape)
+        return np.stack([self._host_lattice_to_elem(v) for v in vals]
+                        ).reshape(P, -1)
 
     def dssum_field(self, u, apply_mask=True, apply_weight=False):
         _, dssum, _, _ = self._ops()
@@ -204,10 +284,18 @@ class Domain:
         return r, rn
 
     def _global_random_points(self, seed: int) -> np.ndarray:
-        """Uniform random values in global element order."""
+        """Uniform random values drawn in global element order and placed
+        in the padded per-shard layout (zeros at pads), flat: the field is
+        the same whatever the partition."""
         st = self.sharded
+        npe = st.num_points_per_elem
         rng = np.random.default_rng(seed)
-        return rng.random(st.num_total_elements * st.num_points_per_elem)
+        flat = rng.random(st.num_total_elements * npe)
+        out = np.zeros((st.num_shards, st.elems_per_shard * npe))
+        for p in range(st.num_shards):
+            lo, hi = st.elem_offsets[p], st.elem_offsets[p + 1]
+            out[p, :(hi - lo) * npe] = flat[lo * npe:hi * npe]
+        return out.reshape(-1)
 
     def initial_function(self, function_id: int = 0, seed: int = 0):
         """Manufactured solutions ids 0-4, made continuous and masked by a

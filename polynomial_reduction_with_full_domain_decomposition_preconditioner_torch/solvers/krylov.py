@@ -7,9 +7,14 @@ over closures, as there:
   dssum_plain(r)    -> QQt r with Dirichlet mask
   dot(u, v)         -> global plain point-space dot (0-d tensor)
   dot2(a,b,c,d)     -> (dot(a,b), dot(c,d))
+  op_dssum(p)       -> (A p, QQt A p), optional: the fused operator and
+                       dssum of a sharded Domain
 Fields are tensors in their natural device shape, or lists of per-group
 tensors (the composite problem). ``dot`` also takes a stacked basis
-prefix (k, numel) against a flat vector and returns (k,).
+prefix (k, numel) against a flat vector and returns (k,). A sharded
+field carries the leading shard axis, zero at padding, so its dot over
+the whole stack is the sum of the shards' dots; ``tree_dot``'s ``comm``
+sums that over the processes.
 
 PyTorch runs eagerly, so the loop structure is plain Python: the
 iteration counters are Python ints and every scalar of the recurrence is
@@ -60,19 +65,31 @@ def _unflat(v, like):
     return out
 
 
-def tree_dot(a, b):
+def _is_basis(a, b) -> bool:
+    """A stacked basis prefix (k, numel) against a flat vector."""
+    return (isinstance(a, torch.Tensor) and a.dim() == 2 and b.dim() == 1
+            and a.shape[1] == b.numel())
+
+
+def tree_dot(a, b, comm=None):
     """Inner product of two fields (0-d tensor in their dtype), or of a
     stacked basis prefix (k, numel) with a flat vector (-> (k,)). Reduced
     precision fields sum in f32 (PyTorch's CPU kernels and cuBLAS alike,
     with bf16 reduced-precision reductions switched off in the package
-    root) and round the result once to their dtype."""
-    if isinstance(a, torch.Tensor) and a.dim() == 2 and b.dim() == 1 \
-            and a.shape[1] == b.numel():
-        return torch.mv(a, b)
-    acc = None
-    for xa, xb in zip(_leaves(a), _leaves(b)):
-        d = torch.dot(xa.reshape(-1), xb.reshape(-1))
-        acc = d if acc is None else acc + d
+    root) and round the result once to their dtype.
+
+    comm: for fields sharded over processes, the dot of this process's
+    shards (the whole stack) is summed over the processes by one
+    ``comm.allreduce``, as the JAX package psums the shard-local dots."""
+    if _is_basis(a, b):
+        acc = torch.mv(a, b)
+    else:
+        acc = None
+        for xa, xb in zip(_leaves(a), _leaves(b)):
+            d = torch.dot(xa.reshape(-1), xb.reshape(-1))
+            acc = d if acc is None else acc + d
+    if comm is not None:
+        (acc,) = comm.allreduce(acc)
     return acc
 
 
@@ -115,9 +132,15 @@ def _target(tolerance, use_relative, r0_norm):
 
 
 def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
-        max_iterations: int, tolerance: float, use_relative: bool = True):
+        max_iterations: int, tolerance: float, use_relative: bool = True,
+        op_dssum=None):
     """Flexible (Notay) preconditioned CG; the target is tolerance * ||r0||
-    (``use_relative``) or the absolute tolerance."""
+    (``use_relative``) or the absolute tolerance.
+
+    op_dssum: the fused p -> (A p, QQt A p) of a sharded Domain. With it
+    the assembled residual is carried, QQt r' = QQt r - alpha QQt q, so a
+    step takes one dssum instead of two, as in the JAX package; it drifts
+    from the re-assembled norm by round-off only."""
     dtype = _leaves(f)[0].dtype
     u = _tmap(torch.zeros_like, f)
     r = f
@@ -133,14 +156,18 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
     it = 0
     done = check and bool(r0_norm < target)
     while not done and it < max_iterations:
-        q = operator(p)
+        if op_dssum is None:
+            q = operator(p)
+        else:
+            q, qq = op_dssum(p)
         gamma, theta = dot2(z, r, p, q)
         # breakdown guards: an exactly solved system gives gamma = theta =
         # 0; alpha and beta must come out 0, not NaN
         alpha = gamma / _safe(theta)
         u = _axpy(alpha, p, u)
         r_new = _axpy(-alpha, q, r)
-        rn = torch.sqrt(torch.clamp(dot(r_new, dssum_plain(r_new)), min=0.0))
+        ra = dssum_plain(r_new) if op_dssum is None else _axpy(-alpha, qq, ra)
+        rn = torch.sqrt(torch.clamp(dot(r_new, ra), min=0.0))
         hist[it + 1] = rn
         it += 1
         if check:
@@ -157,10 +184,14 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
 
 def fgmres(operator, precond, dssum_plain, dot, f, *,
            max_iterations: int, num_vectors: int = 20,
-           tolerance: float, use_relative: bool = True, z_dtype=None):
+           tolerance: float, use_relative: bool = True, op_dssum=None,
+           z_dtype=None):
     """Restarted flexible GMRES(m) with Givens rotations and a masked
     back-substitution over the columns actually built; the target is
     tolerance * ||r0|| (``use_relative``) or the absolute tolerance.
+
+    op_dssum: the fused z -> (A z, QQt A z) of a sharded Domain, in place
+    of operator then dssum_plain (the same numbers).
 
     z_dtype: storage dtype of the flexible Z basis; the preconditioner
     output is quantized to it BEFORE the operator sees it, so the Arnoldi
@@ -210,8 +241,11 @@ def fgmres(operator, precond, dssum_plain, dot, f, *,
                 Z[j] = _flat(zq)
             else:
                 Z[j] = _flat(z)
-            q = operator(z)
-            qq = dssum_plain(q)
+            if op_dssum is None:
+                q = operator(z)
+                qq = dssum_plain(q)
+            else:
+                q, qq = op_dssum(z)
             # H[i] = <q, QQt V[i]>_masked for i <= j (mask/QQt symmetry)
             h = dot(V[:j + 1], _flat(qq)).to(dtype)
             q = _sub(q, _unflat(h @ V[:j + 1], q))

@@ -1,8 +1,10 @@
 """Preconditioners for the outer Krylov solve.
 
-Port of the JAX package's ``solvers/preconditioners.py`` for one
-structured 3-D shard: the container, diagonal (Jacobi) preconditioning
-and the polynomial-reduction multilevel (p-multigrid) V-cycle. The
+Port of the JAX package's ``solvers/preconditioners.py`` for structured
+3-D partitions on one or more slab shards: the container, diagonal
+(Jacobi) preconditioning and the polynomial-reduction multilevel
+(p-multigrid) V-cycle. On P shards every level is partitioned alike and
+its fields are stacked over the shards as the Domain's are. The
 production preconditioner is ``solvers/subdomain.composite_dd``.
 
 A Preconditioner carries
@@ -26,6 +28,7 @@ from ..ops import interp
 from ..ops import sem
 from ..utils.gll import diff_matrix, interp_matrix
 from . import krylov
+from .domain import top_planes
 
 __all__ = ["Preconditioner", "jacobi", "pmultigrid"]
 
@@ -65,14 +68,16 @@ def jacobi(domain) -> Preconditioner:
 
 def _level_arrays(domain, orders, mesh_builder):
     """Lattice-layout device tensors for each coarse order on the same
-    element grid: geometry and D in the domain's dtype, mask and inverse
-    multiplicity stored as the Domain stores its own."""
+    element grid, partitioned over the domain's shards: geometry and D in
+    the domain's dtype, mask and inverse multiplicity stored as the
+    Domain stores its own."""
     grid = domain.local_grid
     dim = domain.dim
     small = domain.arrays.mask.dtype
     levels = []
     for N_c in orders:
-        sd = partition_mesh(mesh_builder(N_c), 1)
+        sd = partition_mesh(mesh_builder(N_c), domain.sharded.num_shards,
+                            structured=True)
         if sd.structured.local_grid() != grid:
             raise ValueError(
                 f"mesh_builder({N_c}) has element grid "
@@ -80,15 +85,14 @@ def _level_arrays(domain, orders, mesh_builder):
         n_c = N_c + 1
 
         def put(arr, dt):
-            lat = elements_to_lattice(arr, grid, n_c, dim)
-            return torch.as_tensor(np.ascontiguousarray(lat),
-                                   device=domain.device).to(dt)
+            return domain.shard_put(np.stack(
+                [elements_to_lattice(a, grid, n_c, dim) for a in arr]), dt)
 
         levels.append({
-            "geom": tuple(put(sd.geom[0][..., k], domain.dtype)
+            "geom": tuple(put(sd.geom[..., k], domain.dtype)
                           for k in range(sd.geom.shape[-1])),
-            "mask": put(sd.dirichlet_mask[0], small),
-            "inv_degree_pts": put(sd.inv_degree_pts[0], small),
+            "mask": put(sd.dirichlet_mask, small),
+            "inv_degree_pts": put(sd.inv_degree_pts, small),
             "D": torch.as_tensor(diff_matrix(n_c), dtype=domain.dtype,
                                  device=domain.device),
         })
@@ -137,10 +141,17 @@ def pmultigrid(domain, mesh_builder, poly_reduction: int = None,
     extra = {"levels": level_extra, "J": Js}
     dim = domain.dim
 
+    comm = domain.comm if domain.spmd else None
+    ragged = domain.spmd and domain.ragged
+
     def build(arrays, extra, ops):
         operator_f, dssum_f, dot, dot2 = ops
 
         def level_ops(lvl, n_c):
+            # each level's real top plane on ragged slabs
+            top = (top_planes(arrays.layers, n_c, lvl["mask"].shape[1])
+                   if ragged else None)
+
             def op(u):
                 return sem.stiffness_apply_lattice(u, lvl["geom"], lvl["D"],
                                                    dim)
@@ -148,8 +159,9 @@ def pmultigrid(domain, mesh_builder, poly_reduction: int = None,
             def ds(u, apply_mask=True, apply_weight=False):
                 return gs.structured_dssum(
                     u, n=n_c, dim=dim, mask=lvl["mask"],
-                    inv_degree_pts=lvl["inv_degree_pts"],
-                    apply_mask=apply_mask, apply_weight=apply_weight)
+                    inv_degree_pts=lvl["inv_degree_pts"], comm=comm,
+                    apply_mask=apply_mask, apply_weight=apply_weight,
+                    top_plane=top)
 
             return op, ds, _inv_diag(lvl["geom"], lvl["D"], dim, ds)
 

@@ -20,8 +20,8 @@ the ptype by amg/vcycle.pack_hierarchies): Q^T, the V-cycle and Q on the
 flattened group lattice, then the group mask.
 
 The layer-group specs (``_GroupSpec``, ``_build_group_specs``) are the
-reference's; on one shard they give the single group. Sharding raises
-NotImplementedError (a later slice).
+reference's; on one shard they give the single group. More shards raise
+NotImplementedError (ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -165,8 +165,13 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
         raise ValueError(f"inner={inner!r} "
                          "(use 'amg', 'fem-amg', 'jacobi' or 'none')")
     sd = domain.sharded
-    if sd.structured is None or sd.num_shards != 1:
-        raise NotImplementedError("the port's composite is one structured shard")
+    if sd.structured is None:
+        raise NotImplementedError(
+            "the composite on a structured=False partition is ROADMAP item 13")
+    if sd.num_shards != 1:
+        raise NotImplementedError(
+            "the composite on more than one shard (rings, far field, "
+            "all_gather) is ROADMAP item 10b")
     dim = domain.dim
     N = domain.poly_degree
     dtype = ptype if ptype is not None else domain.dtype

@@ -131,8 +131,11 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError):
             tsub.composite_dd(two, mk, poly_reduction=1, fine_mesh=tm,
                               inner=inner)
-    with pytest.raises(NotImplementedError):
-        tpartition(tm, 2)
+    # a real two-shard Domain (the sharded fine problem is ported) still
+    # has no composite
+    two_shards = TDomain(tpartition(tm, 2), dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        tsub.composite_dd(two_shards, mk, poly_reduction=1, fine_mesh=tm)
     with pytest.raises(ValueError):
         tsub.composite_dd(td, mk, poly_reduction=1, subdomain_overlap=3,
                           fine_mesh=tm)

@@ -141,3 +141,43 @@ def test_lattice_face_sum_axes_subset_matches_reference():
         ref = np.asarray(jgs.lattice_face_sum(jnp.asarray(U), 2, axes=axes))
         out = tgs.lattice_face_sum(torch.as_tensor(U), 2, axes=axes).numpy()
         assert np.array_equal(out, ref), axes
+
+
+_BATCH_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+                 (torch.float64, torch.float64)]
+
+
+@pytest.mark.parametrize("io,mw", _BATCH_DTYPES)
+@pytest.mark.parametrize("layers,n", [((2, 2, 2, 2), 4), ((2, 1, 1, 1, 1), 4),
+                                      ((3, 3, 2, 0), 2)])
+def test_batched_twin_equals_separate_calls(io, mw, layers, n):
+    # the (P, Mz, My, Mx) stack of slab shards: one batched call of the
+    # twin (the kernel's arithmetic) equals P separate 3-D calls value for
+    # value, for uniform slabs and for ragged ones whose trailing planes
+    # are zero padding (an empty shard is all padding); no sum crosses from
+    # one shard into the next
+    rng = np.random.default_rng(5)
+    P, S = len(layers), max(layers)
+    shape = (P, S * n, 3 * n, 2 * n)
+    U = rng.standard_normal(shape)
+    mask = rng.integers(0, 2, shape).astype(np.float64)
+    w = 1.0 / 2.0 ** rng.integers(0, 4, shape)
+    for p, m in enumerate(layers):
+        U[p, m * n:] = 0.0
+        mask[p, m * n:] = 0.0
+        w[p, m * n:] = 0.0
+    Ut = torch.as_tensor(U).to(io)
+    mt, wt = torch.as_tensor(mask).to(mw), torch.as_tensor(w).to(mw)
+    for kw in ({}, {"mask": mt}, {"mask": mt, "weight": wt}):
+        batched = kernels.lattice_face_sum_3d(Ut, n, **kw)
+        assert batched.shape == Ut.shape and batched.dtype == io
+        for p in range(P):
+            one = kernels.lattice_face_sum_3d(
+                Ut[p], n, **{k: v[p] for k, v in kw.items()})
+            assert torch.equal(batched[p], one), (p, sorted(kw))
+        # the first pad plane receives the real top plane's face (its lo
+        # flag is set); the mask, zero there, keeps padding zero
+        for p, m in enumerate(layers):
+            assert batched[p, m * n + 1:].abs().sum() == 0
+            if "mask" in kw:
+                assert not batched[p, m * n:].any()

@@ -94,8 +94,11 @@ def test_one_shard_partition_matches_reference():
     assert ts.structured.layer_counts == js.structured.layer_counts
     assert ts.num_global_nodes == js.num_global_nodes
     assert ts.points_per_shard == js.points_per_shard
-    with pytest.raises(NotImplementedError):
-        tpartition(tm, 2)
+    # more shards partition too (tests/test_torch_partition.py holds every
+    # field against the reference)
+    js2, ts2 = jpartition(jm, 2), tpartition(tm, 2)
+    assert ts2.structured.layer_counts == js2.structured.layer_counts
+    assert np.array_equal(ts2.geom, js2.geom)
 
 
 def test_geometric_factors_on_the_given_device():

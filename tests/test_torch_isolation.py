@@ -36,6 +36,7 @@ _ISOLATED = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    assert port.__name__ + ".runtime.comm" in names
     import torch
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
@@ -68,6 +69,17 @@ _ISOLATED = textwrap.dedent("""
     r3 = dom.solver(method="fgmres", max_iterations=50, precond=pre)(
         dom.manufacture_rhs(u))
     assert bool(r3.converged), r3.residual_history
+    # P slab shards through the single-process comm (runtime/comm.py):
+    # uniform and ragged, Jacobi and p-multigrid, with JAX blocked
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.comm import LocalComm
+    for P in (2, 3):
+        domP = Domain(partition_mesh(mesh, P), dtype=torch.float32,
+                      device="cpu", comm=LocalComm(P))
+        uP = domP.initial_function(4, seed=0)
+        for pre in (jacobi(domP), pmultigrid(domP, mk, poly_reduction=2)):
+            r4 = domP.solver(method="fcg", max_iterations=200, precond=pre)(
+                domP.manufacture_rhs(uP))
+            assert bool(r4.converged) and r4.u.shape[0] == P, r4.iterations
     assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
                    for k, v in sys.modules.items() if v is not None)
     print("modules", len(names), "iterations", res.iterations)

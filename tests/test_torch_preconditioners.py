@@ -1,6 +1,8 @@
 """PyTorch port of the Jacobi and p-multigrid preconditioners
 (solvers/preconditioners.py) vs the JAX package on the CPU, in f64: 3-D
-twins of tests/test_preconditioners.py and tests/test_pmultigrid.py. Both
+twins of tests/test_preconditioners.py and tests/test_pmultigrid.py, on
+one shard and on P slab shards (the JAX package's shard_map Domain on the
+8-device CPU mesh of tests/conftest.py, the port's LocalComm). Both
 packages get the identical problem: the JAX meshes of every level go
 across with GlobalMesh.from_numpy."""
 
@@ -9,11 +11,13 @@ from functools import partial
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh import generator as jg
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh.partition import partition_mesh as jpartition
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers import preconditioners as jpre
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers.refine import refine_solve as jrefine
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers.domain import Domain as JDomain
 
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
@@ -21,6 +25,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import preconditioners as tpre
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain as TDomain
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.refine import refine_solve as trefine
 
 
 def _port_mesh(m):
@@ -215,3 +220,113 @@ def test_pmg_orders_levels_and_f32_storage():
     other = partial(tg.kershaw_mesh, (2, 3, 3), epsilon=0.3, device="cpu")
     with pytest.raises(ValueError):
         tpre.pmultigrid(dom, other, poly_reduction=3)
+
+
+def _sharded_pair(shape, N, P, dtype=torch.float64):
+    """The same Kershaw problem over P shards in both packages (and the
+    port's one-shard domain), with level-mesh builders for both."""
+    jb = partial(jg.kershaw_mesh, shape, epsilon=0.3)
+    jm = jb(N)
+    tm = _port_mesh(jm)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    jd = JDomain(jpartition(jm, P), dtype=jdt,
+                 device_mesh=jax.make_mesh((P,), ("shard",)))
+    td = TDomain(tpartition(tm, P), dtype=dtype, device="cpu")
+    return jd, td, jb, lambda N_c: _port_mesh(jb(N_c)), tm
+
+
+def _gathered(dom, u):
+    """A field in global point order, padding dropped."""
+    sd = dom.sharded
+    v = dom.from_device_field(u).reshape(sd.num_shards, sd.elems_per_shard,
+                                         -1)
+    return np.concatenate([v[p][sd.elem_valid[p]]
+                           for p in range(sd.num_shards)]).ravel()
+
+
+def test_jacobi_spmd_matches_single():
+    # 3-D twin of tests/test_preconditioners.py::test_jacobi_spmd_matches_single
+    # (its 2-D (4, 4) N=4 mesh becomes Kershaw (3, 3, 8) N=4, 8 shards of
+    # one layer), the port at P = 8 also against the JAX package's P = 8
+    jd, td8, _, _, tm = _sharded_pair((3, 3, 8), 4, 8)
+    td1 = TDomain(tpartition(tm, 1), dtype=torch.float64, device="cpu")
+    out = []
+    for dom, pre in ((td1, tpre.jacobi(td1)), (td8, tpre.jacobi(td8)),
+                     (jd, jpre.jacobi(jd))):
+        u_star = dom.initial_function(0)
+        res = dom.solver(method="fcg", max_iterations=1000, tolerance=1e-9,
+                         precond=pre)(dom.manufacture_rhs(u_star))
+        assert bool(res.converged)
+        out.append(res)
+    its = [int(r.iterations) for r in out]
+    assert abs(its[0] - its[1]) <= 1 and abs(its[1] - its[2]) <= 1, its
+    # Jacobi-CG holds rtol 1e-9 for about 90 steps (test above): 60 here
+    h = [np.asarray(r.residual_history)[:61] for r in out]
+    np.testing.assert_allclose(h[1], h[0], rtol=1e-9)
+    np.testing.assert_allclose(h[1], h[2], rtol=1e-9)
+
+
+def test_pmg_beats_jacobi_spmd():
+    # 3-D twin of tests/test_pmultigrid.py::test_pmg_beats_jacobi[8]:
+    # Kershaw (3, 3, 8) N=5 over 8 shards, orders 5, 2, 1; every level
+    # partitioned over the same 8 shards. Port against the JAX package at
+    # P = 8: the same iterations, histories at rtol 1e-9
+    jd, td, jb, tb, _ = _sharded_pair((3, 3, 8), 5, 8)
+    res = {}
+    for key, dom, pre_mod, builder in (("port", td, tpre, tb),
+                                       ("jax", jd, jpre, jb)):
+        u_star = dom.initial_function(4, seed=1)
+        pmg = pre_mod.pmultigrid(dom, builder, poly_reduction=3)
+        r_pmg = dom.solver(method="fcg", max_iterations=400, tolerance=1e-9,
+                           precond=pmg)(dom.manufacture_rhs(u_star))
+        assert bool(r_pmg.converged)
+        err = np.abs(_gathered(dom, r_pmg.u) - _gathered(dom, u_star)).max()
+        assert err < 1e-6
+        res[key] = r_pmg
+    tp, jp = res["port"], res["jax"]
+    # the original's criterion, on the port (92 against 309 here)
+    f = td.manufacture_rhs(td.initial_function(4, seed=1))
+    tj = td.solver(method="fcg", max_iterations=400, tolerance=1e-9,
+                   precond=tpre.jacobi(td))(f)
+    assert tp.iterations < tj.iterations // 2, (tp.iterations, tj.iterations)
+    assert tp.iterations == int(jp.iterations)
+    k = tp.iterations + 1
+    np.testing.assert_allclose(tp.residual_history.numpy()[:k],
+                               np.asarray(jp.residual_history)[:k],
+                               rtol=1e-9)
+    assert len(td._ops()) == 4
+    levels = tpre.pmultigrid(td, tb, poly_reduction=3).extra["levels"]
+    assert [lv["mask"].shape for lv in levels] == [(8, 3, 9, 9),
+                                                   (8, 2, 6, 6)]
+
+
+def test_refine_spmd_matches_reference():
+    # f64 refinement over 4 shards, each cycle an f32 FCG solve with
+    # p-multigrid (orders 3, 1): port against the JAX package. The cycle
+    # counts agree exactly and each cycle's f32 solve within one iteration
+    # (the f32 parity rule); the residual after the first cycle agrees as
+    # far as two f32 solves to 1e-4 do, whose dots sum in different orders
+    # (1.3e-4 relative measured, held at 1e-3); both reach the f64
+    # tolerance with errors under 1e-10
+    out = {}
+    jd32, td32, jb, tb, tm = _sharded_pair((3, 3, 8), 3, 4, torch.float32)
+    jd64 = JDomain(jd32.sharded, dtype=jnp.float64,
+                   device_mesh=jax.make_mesh((4,), ("shard",)))
+    td64 = TDomain(td32.sharded, dtype=torch.float64, device="cpu")
+    for key, d32, d64, pre_mod, builder, refine in (
+            ("port", td32, td64, tpre, tb, trefine),
+            ("jax", jd32, jd64, jpre, jb, jrefine)):
+        u = d64.initial_function(4, seed=3)
+        f = d64.manufacture_rhs(u)
+        solve = d32.solver(method="fcg", max_iterations=200,
+                           precond=pre_mod.pmultigrid(d32, builder,
+                                                      poly_reduction=2))
+        rr = refine(d64, solve, f, tolerance=1e-10)
+        assert rr.converged and rr.rel_residual < 1e-10
+        out[key] = (rr, np.abs(_gathered(d64, rr.u)
+                               - _gathered(d64, u)).max())
+    (rt, et), (rj, ej) = out["port"], out["jax"]
+    assert rt.cycles == rj.cycles == 3
+    assert abs(rt.inner_iterations - rj.inner_iterations) <= rt.cycles
+    np.testing.assert_allclose(rt.history[:2], rj.history[:2], rtol=1e-3)
+    assert et < 1e-10 and ej < 1e-10
