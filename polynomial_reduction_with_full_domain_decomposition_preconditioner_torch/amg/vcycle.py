@@ -8,13 +8,15 @@ transfers, inner="amg"); ``pack_hierarchies``, ``vcycle_apply`` and
 ``composite_preconditioner`` (the assembled composite FEM hierarchy of
 inner="fem-amg": sparse level matrices and transfers through
 ops/csr.sparse_spmv, a dense coarsest inverse, the lattice <-> DOF maps
-Q / Q^T around the cycle). Fields may be tensors or lists of tensors (the
+Q / Q^T around the cycle; P shards' hierarchies as block-diagonal
+operators on stacked vectors). Fields may be tensors or lists of tensors (the
 composite problem keeps per-group lattices).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..ops.csr import CsrMatrix, csr_from_scipy, sparse_spmv
@@ -36,8 +38,11 @@ def _tmap(fn, *xs):
 
 def _apply(A, x):
     """Level-operator dispatch: a CsrMatrix, or any callable x -> A x (the
-    matrix-free composite operator of the hybrid V-cycle)."""
+    matrix-free composite operator of the hybrid V-cycle). A (P, n) stack
+    goes through a block-diagonal CsrMatrix as its (P n,) view."""
     if isinstance(A, CsrMatrix):
+        if x.dim() == 2:
+            return sparse_spmv(A, x.reshape(-1)).view(x.shape[0], -1)
         return sparse_spmv(A, x)
     return A(x)
 
@@ -90,21 +95,27 @@ def pack_chain(info: dict, dtype=torch.float32, device=None) -> dict:
 
 def chain_vcycle(chain: dict, f, *, cheby_order: int = 2):
     """V(1,1) cycle on a pack_chain chain (stencil applies and dense
-    per-axis contractions); f is flat over the finest vertex grid."""
+    per-axis contractions); f is flat over the finest vertex grid, or a
+    (B, grid points) batch of right-hand sides cycled at once."""
     levels = chain["levels"]
     dim = levels[0]["coefs"].dim() - 1
     nlev = len(levels)
+    lead = tuple(f.shape[:-1])      # () or (B,)
 
     def transfer(l, v, down: bool):
         """down: restrict level l -> l+1; up: prolong level l+1 -> l."""
         Fs = chain["factors"][l]
-        V = v.reshape(levels[l if down else l + 1]["coefs"].shape[1:])
+        V = v.reshape(lead + tuple(
+            levels[l if down else l + 1]["coefs"].shape[1:]))
         for ax, F in enumerate(Fs):
-            V = axis_contract(F.T if down else F, V, ax)
-        return V.reshape(-1) * chain["masks"][l + 1 if down else l]
+            V = axis_contract(F.T if down else F, V, ax + len(lead))
+        return (V.reshape(lead + (-1,))
+                * chain["masks"][l + 1 if down else l])
 
     def cycle(l, fl):
         if l == nlev - 1:
+            if lead:
+                return fl @ chain["coarse_inv"].T
             return chain["coarse_inv"] @ fl
         lv = levels[l]
         A = lambda x: stencil_apply(lv["coefs"], x, dim)
@@ -116,36 +127,75 @@ def chain_vcycle(chain: dict, f, *, cheby_order: int = 2):
     return cycle(0, f)
 
 
+def _block_diag_csr(mats) -> sp.csr_matrix:
+    """The block-diagonal CSR of equally shaped CSR matrices, built from
+    their index arrays (no COO round trip)."""
+    mats = [sp.csr_matrix(m) for m in mats]
+    n_rows, n_cols = mats[0].shape
+    if any(m.shape != (n_rows, n_cols) for m in mats):
+        raise ValueError("the shards' matrices differ in shape")
+    nnz = np.cumsum([0] + [m.nnz for m in mats])
+    indptr = np.concatenate([mats[0].indptr[:1]] + [
+        m.indptr[1:].astype(np.int64) + nnz[p] for p, m in enumerate(mats)])
+    indices = np.concatenate([m.indices.astype(np.int64) + p * n_cols
+                              for p, m in enumerate(mats)])
+    data = np.concatenate([m.data for m in mats])
+    P = len(mats)
+    return sp.csr_matrix((data, indices, indptr),
+                         shape=(P * n_rows, P * n_cols))
+
+
 def pack_hierarchies(hiers, dtype=torch.float32, *, device) -> dict:
-    """Tensors on ``device`` for one shard's assembled hierarchy, unstacked.
-    ``hiers`` is a one-element list of any object with HostHierarchy's
-    fields (scipy sparse matrices and numpy arrays): a hierarchy the JAX
-    package built packs the same way. Every sparse operator is a CsrMatrix
-    in ``dtype`` (its SpMV route follows the dtype, ops/csr.py)."""
-    if len(hiers) != 1:
-        raise ValueError(f"one shard's hierarchy is packed, got {len(hiers)}")
-    h = hiers[0]
-    pack = lambda m: csr_from_scipy(m, dtype=dtype, device=device)
-    arr = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
-                                    device=device).to(dtype)
-    nlev = len(h.mats)
+    """Tensors on ``device`` for the shards' assembled hierarchies:
+    ``hiers`` is a list of objects with HostHierarchy's fields (scipy
+    sparse matrices and numpy arrays; a hierarchy the JAX package built
+    packs the same way), one per shard, with equal shapes level for level
+    (``pad_hier_dofs`` pads ragged shards). Every sparse operator is a
+    CsrMatrix in ``dtype`` (its SpMV route follows the dtype,
+    ops/csr.py).
+
+    One hierarchy packs unstacked, for flat vectors. P > 1 pack stacked,
+    for (P, n) vectors: each sparse operator is the block-diagonal matrix
+    of the P shards' (one SpMV for all shards on the (P n,) view),
+    ``invd`` and ``dof_mask`` are (P, n), ``lmax`` (P, 1) and
+    ``coarse_inv`` (P, nc, nc); ``shards`` is P."""
+    if not hiers:
+        raise ValueError("no hierarchy to pack")
+    P = len(hiers)
+    stacked = P > 1
+    pack = lambda ms: csr_from_scipy(
+        _block_diag_csr(ms) if stacked else ms[0], dtype=dtype,
+        device=device)
+    arr = lambda xs: torch.as_tensor(
+        np.stack([np.asarray(x, dtype=np.float64) for x in xs]) if stacked
+        else np.asarray(xs[0], dtype=np.float64), device=device).to(dtype)
+    nlev = len(hiers[0].mats)
     levels = []
     for l in range(nlev):
-        d = h.mats[l].diagonal()
+        invd = []
+        for h in hiers:
+            d = h.mats[l].diagonal()
+            invd.append(np.where(d > 0, 1.0 / d, 0.0))
+        lmax = [[h.lmaxs[l] if l < nlev - 1 else 1.0] for h in hiers]
         levels.append({
-            "A": pack(h.mats[l]),
-            "invd": arr(np.where(d > 0, 1.0 / d, 0.0)),
-            "lmax": arr(h.lmaxs[l] if l < nlev - 1 else 1.0),
+            "A": pack([h.mats[l] for h in hiers]),
+            "invd": arr(invd),
+            "lmax": arr(lmax) if stacked else arr(lmax)[0],
         })
-    return {
+    tree = {
         "levels": levels,
-        "prolongs": [pack(h.prolongs[l]) for l in range(nlev - 1)],
-        "restricts": [pack(h.prolongs[l].T.tocsr()) for l in range(nlev - 1)],
-        "coarse_inv": arr(h.coarse_inv),
-        "Q": pack(h.Q),
-        "Qt": pack(h.Q.T.tocsr()),
-        "dof_mask": arr(h.dof_mask),
+        "prolongs": [pack([h.prolongs[l] for h in hiers])
+                     for l in range(nlev - 1)],
+        "restricts": [pack([h.prolongs[l].T.tocsr() for h in hiers])
+                      for l in range(nlev - 1)],
+        "coarse_inv": arr([h.coarse_inv for h in hiers]),
+        "Q": pack([h.Q for h in hiers]),
+        "Qt": pack([h.Q.T.tocsr() for h in hiers]),
+        "dof_mask": arr([h.dof_mask for h in hiers]),
     }
+    if stacked:
+        tree["shards"] = P
+    return tree
 
 
 def vcycle_apply(tree: dict, f, *, cheby_order: int = 2,
@@ -160,6 +210,8 @@ def vcycle_apply(tree: dict, f, *, cheby_order: int = 2,
 
     def cycle(l, fl):
         if l == nlev - 1:
+            if "shards" in tree:
+                return torch.bmm(tree["coarse_inv"], fl[..., None])[..., 0]
             return torch.matmul(tree["coarse_inv"], fl)
         lv = levels[l]
         u = cheby_smooth(lv["A"], lv["invd"], lv["lmax"], fl, None,
@@ -180,7 +232,8 @@ def vcycle_apply(tree: dict, f, *, cheby_order: int = 2,
 def composite_preconditioner(tree: dict, *, cheby_order: int = 2,
                              num_cycles: int = 1):
     """(flat composite lattice r -> z) low-order preconditioner apply:
-    gather to DOFs (Q^T), V-cycle(s), scatter back (Q)."""
+    gather to DOFs (Q^T), V-cycle(s), scatter back (Q). A stacked tree
+    takes (P, n) vectors, each shard through its own hierarchy."""
     def apply(r):
         f = _apply(tree["Qt"], r) * tree["dof_mask"]
         v = vcycle_apply(tree, f, cheby_order=cheby_order,

@@ -31,20 +31,29 @@ from .sem import dmul
 __all__ = ["stiffness_lattice_3d", "stiffness_lattice_3d_plain",
            "stiffness_lattice_3d_split", "stiffness_lattice_3d_split_plain",
            "lattice_face_sum_3d", "lattice_face_sum_3d_plain",
-           "LaunchCount", "reset_counts", "counts"]
+           "LaunchCount", "reset_counts", "counts", "take_signatures"]
 
 _CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
 
 
+def _dtype_name(dtype) -> str | None:
+    return None if dtype is None else str(dtype).replace("torch.", "")
+
+
 class LaunchCount:
-    """Launches (or calls) of one function, per I/O dtype name."""
+    """Launches (or calls) of one function, per I/O dtype name, and the
+    distinct launch signatures (shape, order, dtypes) seen since the last
+    ``take_signatures``; ``reset`` clears the counts only."""
 
     def __init__(self):
         self.by_dtype: dict[str, int] = {}
+        self.signatures: set = set()
 
-    def add(self, dtype) -> None:
-        key = str(dtype).replace("torch.", "")
+    def add(self, dtype, signature=None) -> None:
+        key = _dtype_name(dtype)
         self.by_dtype[key] = self.by_dtype.get(key, 0) + 1
+        if signature is not None:
+            self.signatures.add((key,) + tuple(signature))
 
     def reset(self) -> None:
         self.by_dtype.clear()
@@ -236,7 +245,7 @@ def stiffness_lattice_3d(U, G, n: int):
             D.ctypes.data, out.data_ptr(), mz, my, mx,
             plan.ex, plan.ey, plan.ez, stream)
     _raise_on(err, "stiffness_lattice_3d")
-    stiffness_lattice_3d.launches.add(U.dtype)
+    stiffness_lattice_3d.launches.add(U.dtype, (tuple(U.shape), n))
     return out
 
 
@@ -584,7 +593,9 @@ def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
             out.data_ptr(), batch, mz, my, mx, plan.vec, plan.tx, plan.by,
             stream)
     _raise_on(err, "lattice_face_sum_3d")
-    lattice_face_sum_3d.launches.add(U.dtype)
+    lattice_face_sum_3d.launches.add(
+        U.dtype, (tuple(U.shape), n, _dtype_name(mw_dtype) if mw else None,
+                  mask is not None, weight is not None))
     if U.dim() == 4:
         lattice_face_sum_3d.batched_launches.add(U.dtype)
     return out
@@ -619,3 +630,16 @@ def reset_counts() -> None:
 def counts() -> dict:
     """{name: {dtype: count}} for the kernels and their plain twins."""
     return {k: dict(c.by_dtype) for k, c in _COUNTS.items()}
+
+
+def take_signatures() -> dict:
+    """{name: sorted signatures} of K1's and K2's launches since the last
+    call, and forget them. A K1 signature is (dtype, (Mz, My, Mx), n) of
+    the launched lattice (a stack as its (P * Mz, My, Mx) view); a K2 one
+    (dtype, shape, n, mask/weight dtype, has mask, has weight)."""
+    out = {}
+    for name in ("stiffness_lattice_3d", "lattice_face_sum_3d"):
+        c = _COUNTS[name]
+        out[name] = sorted(c.signatures, key=repr)
+        c.signatures.clear()
+    return out

@@ -44,18 +44,25 @@ def stencil_from_csr(A: sp.csr_matrix, grid_shape, dtype=torch.float32,
 
 
 def stencil_apply(coefs, x, dim: int):
-    """y = A x with A in stencil form; x is flat over the grid.
+    """y = A x with A in stencil form; x is flat over the grid, or a (B,
+    grid points) batch of such vectors (the composite's shards, each with
+    its own vertex problem on the one replicated grid).
 
     The reference's 27 rolls as one circular pad and 27 shifted views:
     the view for offset o at point p reads X[(p + o) mod shape], exactly
     what roll(X, -o) gives."""
     if dim != 3:
         raise NotImplementedError("the port's vertex grids are 3-D")
-    grid_shape = coefs.shape[1:]
-    X = x.reshape(grid_shape)
-    Xp = F.pad(X[None, None], (1, 1, 1, 1, 1, 1), mode="circular")[0, 0]
+    grid_shape = tuple(coefs.shape[1:])
+    if x.dim() == 2:
+        X = x.reshape((x.shape[0], 1) + grid_shape)
+        Xp = F.pad(X, (1, 1, 1, 1, 1, 1), mode="circular")[:, 0]
+        coefs = coefs[:, None]
+    else:
+        X = x.reshape(grid_shape)
+        Xp = F.pad(X[None, None], (1, 1, 1, 1, 1, 1), mode="circular")[0, 0]
     nz, ny, nx = grid_shape
-    views = torch.stack([Xp[1 + oz:1 + oz + nz, 1 + oy:1 + oy + ny,
+    views = torch.stack([Xp[..., 1 + oz:1 + oz + nz, 1 + oy:1 + oy + ny,
                             1 + ox:1 + ox + nx]
                          for oz, oy, ox in stencil_offsets(dim)])
     return (coefs * views).sum(dim=0).reshape(x.shape)

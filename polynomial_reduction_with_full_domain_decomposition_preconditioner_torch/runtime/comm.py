@@ -18,9 +18,18 @@ A sharded field is one tensor whose leading axis holds the
                           bottom plane of the shard above, in place (the
                           JAX package's ``slab_exchange_add``, two chain
                           ppermutes)
+  all_gather(x)        -> every shard's x concatenated along its first
+                          axis, one copy of shape (P * x.shape[1], ...)
+                          (``jax.lax.all_gather(..., tiled=True)``: the
+                          composite's far field)
+  cyclic_shift(x, k)   -> shard i receives shard (i + k) mod P's x (the
+                          cyclic ``jax.lax.ppermute`` of the composite's
+                          ring blocks: k = 1 from the shard above, k = -1
+                          from the shard below)
 ``LocalComm(P)`` is the single-process backend: this process owns all P
-shards, so an allreduce has nothing left to sum, and the slab exchange
-adds shifted slices of the stack into itself. The card runs P shards
+shards, so an allreduce has nothing left to sum, the slab exchange adds
+shifted slices of the stack into itself, the all-gather is a view of the
+stack and the cyclic shift one ``torch.roll``. The card runs P shards
 this way in one process.
 """
 
@@ -75,6 +84,19 @@ class LocalComm:
         """Sum over the shard axis; one copy of shape x.shape[1:]."""
         self._check(x, "psum")
         return x.sum(0)
+
+    def all_gather(self, x):
+        """Every shard's x concatenated along x's first axis, the tiled
+        all-gather: one copy of shape (P * x.shape[1], ...). The stack
+        already holds every shard, so it is a view of x."""
+        self._check(x, "all_gather")
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    def cyclic_shift(self, x, offset: int):
+        """out[i] = x[(i + offset) mod P]: the cyclic ppermute with the
+        pairs ((i + offset) mod P, i), in one roll."""
+        self._check(x, "cyclic_shift")
+        return torch.roll(x, -offset, 0)
 
     def allreduce(self, *xs):
         """``xs``, each already summed over this process's shards, summed

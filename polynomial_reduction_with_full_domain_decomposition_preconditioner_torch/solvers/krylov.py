@@ -24,6 +24,15 @@ the host; its breakdown guards are ``torch.where``. Otherwise each step
 reads one pair of flags (converged-or-NaN, breakdown) with ``.tolist()``.
 A Krylov basis is one contiguous (m+1, numel) tensor.
 
+The composite inner solve at P > 1 is rank-local, as under the JAX
+package's ``shard_map`` (its composite dot has no psum): ``batched=True``
+solves every shard's problem on the stacked fields at once with its own
+Krylov scalars. Its ``dot`` is ``shard_dot`` (a (P,) tensor, or (k, P)
+for a stacked basis prefix); every scalar of the recurrence is a (P,)
+tensor broadcast over the shard axis, the residual history is
+(max_iterations + 1, P), and the FGMRES bases are one (m + 1, P, ...)
+tensor per field leaf, so a basis row is a contiguous stack of fields.
+
 Residual norm = sqrt(<r, QQt r>_masked).
 """
 
@@ -33,7 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["KrylovResult", "fcg", "fgmres", "tree_dot"]
+__all__ = ["KrylovResult", "fcg", "fgmres", "shard_dot", "tree_dot"]
 
 
 def _leaves(x):
@@ -93,9 +102,44 @@ def tree_dot(a, b, comm=None):
     return acc
 
 
+def _shard_gram(A, B):
+    """(k, P) rank-local dots of k stacks A (k, P, ...) with the stack B
+    (P, ...): the (k P, P) product of the flat rows, one GEMM, whose
+    diagonal blocks are the shards' own dots. A GEMM spreads the long
+    reduction over the card (one row per shard in a batched product runs
+    P blocks); reduced-precision rows sum in f32 and round once, as
+    ``torch.dot`` does."""
+    k, P = A.shape[0], A.shape[1]
+    C = torch.mm(A.reshape(k * P, -1), B.reshape(P, -1).T)
+    return C.view(k, P, P).diagonal(dim1=1, dim2=2)
+
+
+def shard_dot(a, b):
+    """Rank-local inner products of two stacked fields (every leaf with a
+    leading shard axis P): the (P,) dots of each shard's own part, summed
+    over the leaves, with no sum across shards (the JAX package's
+    composite ``tree_dot`` without an axis name under ``shard_map``). A
+    stacked basis prefix (each leaf (k, P, ...)) against a field gives
+    (k, P)."""
+    acc = None
+    for xa, xb in zip(_leaves(a), _leaves(b)):
+        if xa.dim() == xb.dim():
+            d = _shard_gram(xa[None], xb)[0]
+        else:
+            d = _shard_gram(xa, xb)
+        acc = d if acc is None else acc + d
+    return acc
+
+
+def _bc(a, x):
+    """A scalar tensor shaped to broadcast over the field leaf x: a 0-d
+    scalar as it is, a (P,) per-shard scalar over x's shard axis."""
+    return a if a.dim() == 0 else a.reshape(a.shape + (1,) * (x.dim() - a.dim()))
+
+
 def _axpy(a, x, y):
-    """a*x + y over fields (a a scalar tensor)."""
-    return _tmap(lambda xl, yl: a * xl + yl, x, y)
+    """a*x + y over fields (a a 0-d or a per-shard (P,) scalar tensor)."""
+    return _tmap(lambda xl, yl: _bc(a, xl) * xl + yl, x, y)
 
 
 def _sub(x, y):
@@ -131,16 +175,26 @@ def _target(tolerance, use_relative, r0_norm):
                            device=r0_norm.device)
 
 
+def _check_batched(batched, tolerance):
+    if batched and tolerance > 0:
+        raise ValueError("a rank-local (batched) solve runs a fixed "
+                         "iteration count: tolerance must be 0")
+
+
 def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
         max_iterations: int, tolerance: float, use_relative: bool = True,
-        op_dssum=None):
+        op_dssum=None, batched: bool = False):
     """Flexible (Notay) preconditioned CG; the target is tolerance * ||r0||
     (``use_relative``) or the absolute tolerance.
 
     op_dssum: the fused p -> (A p, QQt A p) of a sharded Domain. With it
     the assembled residual is carried, QQt r' = QQt r - alpha QQt q, so a
     step takes one dssum instead of two, as in the JAX package; it drifts
-    from the re-assembled norm by round-off only."""
+    from the re-assembled norm by round-off only.
+
+    batched: every shard of the stacked fields solves its own problem
+    (``dot`` / ``dot2`` rank-local, scalars (P,)); tolerance must be 0."""
+    _check_batched(batched, tolerance)
     dtype = _leaves(f)[0].dtype
     u = _tmap(torch.zeros_like, f)
     r = f
@@ -148,11 +202,15 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
     r0_norm = torch.sqrt(torch.clamp(dot(r, ra), min=0.0))
     z = precond(r)
     p = z
-    hist = torch.full((max_iterations + 1,), float("nan"), dtype=dtype,
-                      device=r0_norm.device)
+    hist = torch.full((max_iterations + 1,) + tuple(r0_norm.shape),
+                      float("nan"), dtype=dtype, device=r0_norm.device)
     hist[0] = r0_norm
     target = _target(tolerance, use_relative, r0_norm)
     check = tolerance > 0
+    # batched: a shard whose residual norm turns NaN ends its solve there
+    # (the JAX package's per-shard loop exit); its u stays as that step
+    # left it
+    live = torch.ones_like(r0_norm, dtype=torch.bool) if batched else None
     it = 0
     done = check and bool(r0_norm < target)
     while not done and it < max_iterations:
@@ -164,11 +222,17 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
         # breakdown guards: an exactly solved system gives gamma = theta =
         # 0; alpha and beta must come out 0, not NaN
         alpha = gamma / _safe(theta)
-        u = _axpy(alpha, p, u)
+        u_new = _axpy(alpha, p, u)
+        u = u_new if live is None else _tmap(
+            lambda a, b: torch.where(_bc(live, a), a, b), u_new, u)
         r_new = _axpy(-alpha, q, r)
         ra = dssum_plain(r_new) if op_dssum is None else _axpy(-alpha, qq, ra)
         rn = torch.sqrt(torch.clamp(dot(r_new, ra), min=0.0))
-        hist[it + 1] = rn
+        if live is None:
+            hist[it + 1] = rn
+        else:
+            hist[it + 1] = torch.where(live, rn, float("nan"))
+            live = live & ~torch.isnan(rn)
         it += 1
         if check:
             done = bool((rn < target) | torch.isnan(rn))
@@ -185,7 +249,7 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
 def fgmres(operator, precond, dssum_plain, dot, f, *,
            max_iterations: int, num_vectors: int = 20,
            tolerance: float, use_relative: bool = True, op_dssum=None,
-           z_dtype=None):
+           z_dtype=None, batched: bool = False):
     """Restarted flexible GMRES(m) with Givens rotations and a masked
     back-substitution over the columns actually built; the target is
     tolerance * ||r0|| (``use_relative``) or the absolute tolerance.
@@ -196,7 +260,16 @@ def fgmres(operator, precond, dssum_plain, dot, f, *,
     z_dtype: storage dtype of the flexible Z basis; the preconditioner
     output is quantized to it BEFORE the operator sees it, so the Arnoldi
     relation stays consistent with the stored basis.
+
+    batched: every shard of the stacked fields solves its own problem
+    (``dot`` is ``shard_dot``); tolerance must be 0 (``_fgmres_batched``).
     """
+    _check_batched(batched, tolerance)
+    if batched:
+        return _fgmres_batched(operator, precond, dssum_plain, dot, f,
+                               max_iterations=max_iterations,
+                               num_vectors=num_vectors, op_dssum=op_dssum,
+                               z_dtype=z_dtype)
     m = num_vectors
     dtype = _leaves(f)[0].dtype
     zdt = dtype if z_dtype is None else z_dtype
@@ -296,3 +369,194 @@ def fgmres(operator, precond, dssum_plain, dot, f, *,
     converged = (last_rnorm < target) & ~torch.isnan(last_rnorm)
     return KrylovResult(u=u, iterations=it, residual_history=hist,
                         r0_norm=r0_norm, converged=converged)
+
+
+def _rows_combine(h, V):
+    """sum_i h[i, p] V[i, p] over a stacked basis V (k, P, ...) of one
+    leaf with per-shard coefficients h (k, P): (P, ...)."""
+    k, P = h.shape
+    out = torch.einsum("ip,ipn->pn", h, V.reshape(k, P, -1))
+    return out.reshape(V.shape[1:])
+
+
+def _rows_at(V, j):
+    """Row j[p] of shard p of a stacked basis V (k, P, ...): (P, ...)."""
+    P = V.shape[1]
+    idx = j.view(1, P, 1).expand(1, P, V[0, 0].numel())
+    return torch.gather(V.reshape(V.shape[0], P, -1), 0, idx)[0] \
+        .reshape(V.shape[1:])
+
+
+def _set_rows(V, j, x):
+    """Row j[p] of shard p of the stacked basis V set to x[p], in place."""
+    P = V.shape[1]
+    n = V[0, 0].numel()
+    V.view(V.shape[0], P, n).scatter_(
+        0, j.view(1, P, 1).expand(1, P, n), x.reshape(1, P, n).to(V.dtype))
+
+
+def _at(a, j):
+    """a[j[p], p] of a (k, P) table: (P,)."""
+    return torch.gather(a, 0, j.view(1, -1))[0]
+
+
+def _set_at(a, j, v):
+    """a[j[p], p] = v[p], in place."""
+    a.scatter_(0, j.view(1, -1), v.view(1, -1).to(a.dtype))
+
+
+def _back_substitute(H, gam, j):
+    """y (m, P) solving each shard's triangular system over its columns
+    0 .. j[p] - 1 (zero beyond), with the breakdown guard on H[k, k]."""
+    m = H.shape[1]
+    y = torch.zeros_like(gam[:m])
+    for k in range(m - 1, -1, -1):
+        contrib = (H[k, k + 1:] * y[k + 1:]).sum(0)
+        yk = (gam[k] - contrib) / _safe(H[k, k])
+        y[k] = torch.where(k < j, yk, torch.zeros_like(yk))
+    return y
+
+
+def _fgmres_batched(operator, precond, dssum_plain, dot, f, *,
+                    max_iterations: int, num_vectors: int, op_dssum=None,
+                    z_dtype=None):
+    """``fgmres`` with every shard's own recurrence, as the JAX package's
+    fgmres runs under ``shard_map`` with a rank-local dot: per shard, a
+    cycle of Arnoldi steps ends when its basis is full or at a breakdown
+    (alpha = 0, e.g. <q, QQt q> rounding to <= 0) or a NaN; the cycle's
+    correction is added, and a shard with steps left restarts from its
+    residual (a NaN ends its solve). Here the shards step in lockstep, one
+    Arnoldi step each per iteration: the Hessenberg, the Givens pairs and
+    the residual estimates carry a trailing shard axis, each shard its own
+    column index j. Every iteration after the first ends and restarts the
+    cycles that must, selected per shard: a masked back-substitution adds
+    the correction Z y, and the new cycle starts from the residual the
+    Arnoldi relation gives, operator(Z) = V Hraw (Hraw: the unrotated
+    Hessenberg, with 1 below the diagonal where a breakdown left q
+    unnormalized in V): r = c0 V[0] - V Hraw y, of norm |gam[j]|. The JAX
+    package applies the operator to u there instead; the two agree to
+    round-off, and this costs no operator apply and no dssum. Rows of V
+    and Z beyond a shard's j are stale and masked out. The basis is one
+    (m + 1, P, ...) tensor per field leaf. A fixed iteration count (no
+    tolerance): nothing is read on the host."""
+    m = num_vectors
+    leaves = _leaves(f)
+    dtype = leaves[0].dtype
+    zdt = dtype if z_dtype is None else z_dtype
+    P = leaves[0].shape[0]
+    device = leaves[0].device
+    as_field = (lambda parts: parts) if isinstance(f, (list, tuple)) \
+        else (lambda parts: parts[0])
+    one = torch.ones((), dtype=dtype, device=device)
+    nan = torch.full((P,), float("nan"), dtype=dtype, device=device)
+
+    u = [torch.zeros_like(x) for x in leaves]
+    r0_norm = _res_norm(f, dssum_plain, dot)
+    hist = torch.full((max_iterations + 1, P), float("nan"), dtype=dtype,
+                      device=device)
+    hist[0] = r0_norm
+    V = [torch.zeros((m + 1,) + tuple(x.shape), dtype=dtype, device=device)
+         for x in leaves]
+    Z = [torch.zeros((m,) + tuple(x.shape), dtype=zdt, device=device)
+         for x in leaves]
+    H = torch.zeros((m + 1, m, P), dtype=dtype, device=device)
+    Hraw = torch.zeros_like(H)
+    gam = torch.zeros((m + 1, P), dtype=dtype, device=device)
+    c = torch.zeros((m, P), dtype=dtype, device=device)
+    s = torch.zeros((m, P), dtype=dtype, device=device)
+    c0 = torch.zeros(P, dtype=dtype, device=device)  # cycle start: c0 V[0]
+    j = torch.zeros(P, dtype=torch.long, device=device)
+    ended = torch.zeros(P, dtype=torch.bool, device=device)  # cycle over
+    dead = torch.zeros(P, dtype=torch.bool, device=device)   # solve over
+    rnorm = r0_norm
+    iota = torch.arange(m + 1, device=device).view(-1, 1)
+
+    def start(rs, r, g0):
+        """Shards in rs begin a cycle from the residual r of norm g0."""
+        g0_safe = torch.where(g0 > 0, g0, one)
+        for Vl, rl in zip(V, r):
+            Vl[0] = torch.where(_bc(rs, rl), rl * _bc(1.0 / g0_safe, rl),
+                                Vl[0])
+        for a in (H, Hraw, c, s):
+            a.copy_(torch.where(rs, 0.0, a))
+        gam.copy_(torch.where(rs, torch.where(iota == 0, g0, 0.0), gam))
+        c0.copy_(torch.where(rs, g0_safe, c0))
+        j.copy_(torch.where(rs, 0, j))
+
+    def finish(fin):
+        """Shards in fin add their cycle's correction Z y to u; returns y."""
+        y = _back_substitute(H, gam, j)
+        for ul, Zl in zip(u, Z):
+            upd = _rows_combine(y, Zl if zdt == dtype else Zl.to(dtype))
+            ul.copy_(torch.where(_bc(fin, ul), ul + upd, ul))
+        return y
+
+    start(torch.ones(P, dtype=torch.bool, device=device), leaves, r0_norm)
+    for it in range(max_iterations):
+        if it > 0:
+            fin = (ended | (j == m)) & ~dead
+            y = finish(fin)
+            dead = dead | (fin & torch.isnan(rnorm))
+            rs = fin & ~dead
+            w = torch.where(iota == 0, c0, 0.0) \
+                - torch.einsum("ikp,kp->ip", Hraw, y)
+            start(rs, [_rows_combine(w, Vl) for Vl in V],
+                  torch.abs(_at(gam, j)))
+            j.copy_(torch.where(dead, 0, j))   # an ended solve steps on idle
+        z = precond(as_field([_rows_at(Vl, j) for Vl in V]))
+        if z_dtype is not None:
+            zq = _tmap(lambda zl: zl.to(z_dtype), z)
+            z = _tmap(lambda zl: zl.to(dtype), zq)
+        else:
+            zq = z
+        for Zl, zl in zip(Z, _leaves(zq)):
+            _set_rows(Zl, j, zl)
+        if op_dssum is None:
+            q = operator(z)
+            qq = dssum_plain(q)
+        else:
+            q, qq = op_dssum(z)
+        # H[i] = <q, QQt V[i]>_masked for i <= j, per shard
+        h = dot(as_field(V), qq).to(dtype)
+        h = torch.where(iota <= j, h, 0.0)
+        q = as_field([ql - _rows_combine(h, Vl)
+                      for ql, Vl in zip(_leaves(q), V)])
+        alpha = torch.sqrt(torch.clamp(dot(q, dssum_plain(q)), min=0.0))
+        alpha_safe = torch.where(alpha > 0, alpha, one)
+        col = j.view(1, 1, P).expand(m + 1, 1, P)
+        Hraw.scatter_(1, col, torch.where(iota == j + 1, alpha_safe, h)
+                      .view(m + 1, 1, P))
+
+        hcol = h
+        for i in range(m):                 # accumulated Givens rotations
+            act = i < j
+            hi, hi1 = hcol[i], hcol[i + 1]
+            hcol = hcol.clone()
+            hcol[i] = torch.where(act, c[i] * hi + s[i] * hi1, hi)
+            hcol[i + 1] = torch.where(act, -s[i] * hi + c[i] * hi1, hi1)
+        hj = _at(hcol, j)
+        beta = torch.sqrt(hj ** 2 + alpha ** 2)
+        beta_safe = torch.where(beta > 0, beta, one)
+        cj = hj / beta_safe
+        sj = alpha / beta_safe
+        _set_at(hcol, j, beta)
+        gj = _at(gam, j)
+        _set_at(gam, j + 1, -sj * gj)
+        _set_at(gam, j, cj * gj)
+        rnorm = torch.abs(-sj * gj)
+        H.scatter_(1, col, hcol.view(m + 1, 1, P))
+        _set_at(c, j, cj)
+        _set_at(s, j, sj)
+        for Vl, ql in zip(V, _leaves(q)):
+            _set_rows(Vl, j + 1, ql * _bc(1.0 / alpha_safe, ql))
+        hist[it + 1] = torch.where(dead, nan, rnorm)
+        ended = torch.isnan(rnorm) | (alpha == 0)
+        j = j + 1
+    finish(~dead)
+
+    # a fixed count has no tolerance to reach: not converged, as fgmres
+    # reports a tolerance-0 solve
+    return KrylovResult(u=as_field(u), iterations=max_iterations,
+                        residual_history=hist, r0_norm=r0_norm,
+                        converged=torch.zeros(P, dtype=torch.bool,
+                                              device=device))

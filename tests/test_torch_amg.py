@@ -342,7 +342,19 @@ def test_pack_hierarchies_dtype_and_refusals():
     y = tvc.vcycle_apply(tree, torch.ones(hj.mats[0].shape[0],
                                           dtype=torch.bfloat16))
     assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+    # shards pack block-diagonally (the multi-shard composite): a (2, n)
+    # stack through one SpMV per operator, each shard its own cycle
+    one = tvc.pack_hierarchies([ht], dtype=torch.float64, device="cpu")
+    two = tvc.pack_hierarchies([ht, ht], dtype=torch.float64, device="cpu")
+    n = ht.mats[0].shape[0]
+    assert two["shards"] == 2 and two["levels"][0]["A"].shape == (2 * n, 2 * n)
+    assert two["coarse_inv"].dim() == 3 and two["dof_mask"].shape == (2, n)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((2, n)))
+    ys = tvc.vcycle_apply(two, x)
+    for p in range(2):
+        torch.testing.assert_close(ys[p], tvc.vcycle_apply(one, x[p]),
+                                   rtol=1e-13, atol=1e-13)
     with pytest.raises(ValueError):
-        tvc.pack_hierarchies([ht, ht], dtype=torch.float32, device="cpu")
+        tvc.pack_hierarchies([], dtype=torch.float32, device="cpu")
     with pytest.raises(TypeError):          # the device is never implied
         tvc.pack_hierarchies([ht], dtype=torch.float32)

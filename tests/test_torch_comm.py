@@ -1,9 +1,10 @@
 """The port's single-process collectives (runtime/comm.LocalComm) against
-``jax.lax.ppermute`` and ``jax.lax.psum`` under ``jax.shard_map`` on the
-8-device CPU mesh of tests/conftest.py, on the slab chain's pairs, and
-its slab exchange against the JAX package's: the values must be equal
-exactly (a permutation moves values; a psum of
-integer-valued f64 partials is exact in any order)."""
+``jax.lax.ppermute``, ``jax.lax.psum`` and ``jax.lax.all_gather`` under
+``jax.shard_map`` on the 8-device CPU mesh of tests/conftest.py, on the
+slab chain's pairs and the composite's cyclic ones, and its slab exchange
+against the JAX package's: the values must be equal exactly (a
+permutation or a gather moves values; a psum of integer-valued f64
+partials is exact in any order)."""
 
 import numpy as np
 import pytest
@@ -103,3 +104,34 @@ def test_slab_exchange_matches_jax(layers):
     got = LocalComm(nshards).slab_exchange_add(torch.as_tensor(x).clone(),
                                                top).numpy()
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("nshards", [1, 3, 5, 8])
+def test_all_gather_matches_jax(nshards):
+    # the composite's far field: every shard's coarsest level, tiled along
+    # its first axis (shard-major), on every shard
+    x = _field(nshards, seed=6)
+    want = _jax_collective(
+        lambda a: jax.lax.all_gather(a, "shard", axis=0, tiled=True), x,
+        nshards)
+    got = LocalComm(nshards).all_gather(torch.as_tensor(x)).numpy()
+    assert got.shape == (nshards * x.shape[1],) + x.shape[2:]
+    # jax's tiled all-gather is replicated on every shard: one copy here
+    for p in range(nshards):
+        assert np.array_equal(got, want.reshape((nshards,) + got.shape)[p])
+
+
+@pytest.mark.parametrize("nshards", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("offset", [1, -1])
+def test_cyclic_shift_matches_jax(nshards, offset):
+    # the composite's ring blocks: shard i receives shard (i + offset) mod
+    # P's block, the cyclic ppermute of subdomain.py's _rings_above
+    # (offset 1) and _rings_below (offset -1)
+    x = _field(nshards, seed=7)
+    pairs = [((i + offset) % nshards, i) for i in range(nshards)]
+    want = _jax_collective(lambda a: jax.lax.ppermute(a, "shard", pairs),
+                           x, nshards)
+    got = LocalComm(nshards).cyclic_shift(torch.as_tensor(x), offset)
+    assert np.array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        LocalComm(nshards + 1).cyclic_shift(torch.as_tensor(x), offset)

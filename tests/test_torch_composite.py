@@ -3,8 +3,6 @@
 refinement vs the JAX package on the CPU. Both packages get the identical
 problem: the JAX meshes go across with GlobalMesh.from_numpy."""
 
-import copy
-import dataclasses
 from functools import partial
 
 import numpy as np
@@ -125,17 +123,21 @@ def test_unported_options_raise():
     for kw in ({"inner": "jacobi"}, {"inner_solver": "fcg"},
                {"inner": "fem-amg"}):
         tsub.composite_dd(td, mk, poly_reduction=1, fine_mesh=tm, **kw)
-    two = copy.copy(td)
-    two.sharded = dataclasses.replace(td.sharded, num_shards=2)
+    # two shards (the multi-shard composite, tests/
+    # test_torch_composite_spmd.py): both inners build and converge on
+    # slabs of 4 layers, rings of orders 2 and 1 on each side
+    tm8 = tg.kershaw_mesh((2, 2, 8), 2, device="cpu")
+    mk8 = partial(tg.kershaw_mesh, (2, 2, 8), device="cpu")
+    two_shards = TDomain(tpartition(tm8, 2), dtype=torch.float64,
+                         device="cpu")
+    f = two_shards.manufacture_rhs(two_shards.initial_function(4, seed=0))
     for inner in ("amg", "fem-amg"):
-        with pytest.raises(NotImplementedError):
-            tsub.composite_dd(two, mk, poly_reduction=1, fine_mesh=tm,
-                              inner=inner)
-    # a real two-shard Domain (the sharded fine problem is ported) still
-    # has no composite
-    two_shards = TDomain(tpartition(tm, 2), dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tsub.composite_dd(two_shards, mk, poly_reduction=1, fine_mesh=tm)
+        pre = tsub.composite_dd(two_shards, mk8, poly_reduction=1,
+                                fine_mesh=tm8, inner=inner)
+        assert len(pre.extra["specs"]) == 5
+        res = two_shards.solver(method="fgmres", max_iterations=60,
+                                tolerance=1e-8, precond=pre)(f)
+        assert bool(res.converged), (inner, res.residual_history)
     with pytest.raises(ValueError):
         tsub.composite_dd(td, mk, poly_reduction=1, subdomain_overlap=3,
                           fine_mesh=tm)

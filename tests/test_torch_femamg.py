@@ -5,8 +5,6 @@ hierarchy under a bf16 Z basis, Kershaw (2, 2, 17) N=3) in both
 packages. Both get the identical problem: the JAX meshes go across with
 GlobalMesh.from_numpy."""
 
-import copy
-import dataclasses
 from functools import partial
 
 import numpy as np
@@ -125,9 +123,15 @@ def test_femamg_setup_stages_and_refusals():
     with pytest.raises(ValueError):
         tsub.composite_dd(td, mk, poly_reduction=1, fine_mesh=tm,
                           inner="fem-amg", far_coarsen=2)
-    # more than one shard is a later slice
-    two = copy.copy(td)
-    two.sharded = dataclasses.replace(td.sharded, num_shards=2)
-    with pytest.raises(NotImplementedError):
-        tsub.composite_dd(two, mk, poly_reduction=1, fine_mesh=tm,
-                          inner="fem-amg")
+    # two shards: one hierarchy per shard, packed block-diagonal, builds
+    # and converges (slabs of 4 layers)
+    tm8 = tg.kershaw_mesh((2, 2, 8), 2, device="cpu")
+    two = TDomain(tpartition(tm8, 2), dtype=torch.float32, device="cpu")
+    pre = tsub.composite_dd(two, partial(tg.kershaw_mesh, (2, 2, 8),
+                                         device="cpu"),
+                            poly_reduction=1, fine_mesh=tm8,
+                            inner="fem-amg")
+    assert pre.extra["amg"]["shards"] == 2
+    res = two.solver(method="fgmres", max_iterations=50, precond=pre)(
+        two.manufacture_rhs(two.initial_function(4, seed=0)))
+    assert bool(res.converged)

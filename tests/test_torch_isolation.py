@@ -143,3 +143,24 @@ def test_cpu_tensors_never_launch_kernels():
         kernels.stiffness_lattice_3d(meta, [meta] * 6, 2)
     with pytest.raises(ValueError):
         kernels.stiffness_lattice_3d_split(meta, [meta] * 6, 8)
+
+
+def test_launch_signatures_are_kept_until_taken():
+    # chip_smoke.py holds K1 and K2 to their twins at every signature a
+    # phase launched: reset_counts clears the counts, not the signatures
+    kernels.take_signatures()
+    kernels.stiffness_lattice_3d.launches.add(torch.float32, ((16, 8, 8), 2))
+    kernels.stiffness_lattice_3d.launches.add(torch.float32, ((16, 8, 8), 2))
+    kernels.lattice_face_sum_3d.launches.add(
+        torch.bfloat16, ((2, 8, 8, 8), 2, None, False, False))
+    kernels.reset_counts()
+    assert kernels.counts()["stiffness_lattice_3d"] == {}
+    assert kernels.take_signatures() == {
+        "stiffness_lattice_3d": [("float32", (16, 8, 8), 2)],
+        "lattice_face_sum_3d": [("bfloat16", (2, 8, 8, 8), 2, None, False,
+                                 False)]}
+    assert kernels.take_signatures() == {"stiffness_lattice_3d": [],
+                                         "lattice_face_sum_3d": []}
+    # a CPU tensor goes to the plain twin and leaves no signature
+    kernels.lattice_face_sum_3d(torch.ones((2, 4, 4, 4)), 2)
+    assert kernels.take_signatures()["lattice_face_sum_3d"] == []

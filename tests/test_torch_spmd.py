@@ -293,7 +293,12 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="item 13"):
         TDomain(tpartition(mesh, 2, structured=False), dtype=torch.float64,
                 device="cpu")
-    dom = TDomain(tpartition(mesh, 2), dtype=torch.float64, device="cpu")
-    mk = partial(tg.box_mesh, (2, 2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tsub.composite_dd(dom, mk, poly_reduction=1)
+    # the composite at P > 1 (item 10b) builds and converges: two slabs
+    # of 4 layers
+    mk = partial(tg.box_mesh, (2, 2, 8), device="cpu")
+    dom = TDomain(tpartition(mk(2), 2), dtype=torch.float64, device="cpu")
+    pre = tsub.composite_dd(dom, mk, poly_reduction=1)
+    f = dom.manufacture_rhs(dom.initial_function(4, seed=0))
+    res = dom.solver(method="fgmres", max_iterations=60, tolerance=1e-8,
+                     precond=pre)(f)
+    assert bool(res.converged), res.residual_history
