@@ -1,7 +1,8 @@
 """Structured spectral-element mesh generation (box and Kershaw meshes).
 
-Port of the JAX package's ``mesh/generator.py`` for 3-D meshes (the
-unstructured ``scramble_mesh`` belongs to a later slice). Node numbering,
+Port of the JAX package's ``mesh/generator.py`` for 3-D meshes, with
+``scramble_mesh``, which turns a structured mesh into one of unstructured
+connectivity (the unstructured composite's mesh family). Node numbering,
 Dirichlet mask and multiplicities are host numpy, as there; the geometric
 factors run in torch float64 on the device the mesh is built for (the
 H100 has native f64), with the arithmetic of the reference's numpy form
@@ -21,7 +22,8 @@ import torch
 from .. import resolve_device
 from ..utils.gll import gll_points_weights, diff_matrix
 
-__all__ = ["GlobalMesh", "box_mesh", "kershaw_mesh", "geometric_factors"]
+__all__ = ["GlobalMesh", "box_mesh", "kershaw_mesh", "geometric_factors",
+           "scramble_mesh"]
 
 
 @dataclass
@@ -323,3 +325,93 @@ def kershaw_mesh(elem_shape, poly_degree, epsilon=0.3, extent=None,
 
     return _build(tuple(elem_shape), poly_degree,
                   vertex_transform=vtransform, device=device)
+
+
+# ---------------------------------------------------------------------------
+# unstructured-connectivity scrambling
+
+
+def _proper_rotations(dim: int):
+    """All orientation-preserving symmetries of the square (4) / cube (24)
+    as (axis_perm, flip) pairs acting on local (z, y, x) index tuples."""
+    import itertools
+    rots = []
+    for perm in itertools.permutations(range(dim)):
+        for flips in itertools.product((False, True), repeat=dim):
+            # the signed permutation's determinant must be +1: the
+            # permutation's parity times one sign per flip
+            sign = 1
+            seen = [False] * dim
+            for i in range(dim):
+                if seen[i]:
+                    continue
+                j, clen = i, 0
+                while not seen[j]:
+                    seen[j] = True
+                    j = perm[j]
+                    clen += 1
+                if clen % 2 == 0:
+                    sign = -sign
+            for f in flips:
+                if f:
+                    sign = -sign
+            if sign == 1:
+                rots.append((perm, flips))
+    return rots
+
+
+def _rotation_node_perm(perm, flips, n: int, dim: int) -> np.ndarray:
+    """Node permutation P with new_data[P] = old_data, i.e.
+    new_data[v'] = old_data[v] where v' is v's rotated position."""
+    idx = np.indices((n,) * dim).reshape(dim, -1)      # old (z, y, x)
+    new_idx = np.empty_like(idx)
+    for d in range(dim):
+        src = idx[perm[d]]
+        new_idx[d] = (n - 1 - src) if flips[d] else src
+    vnew = np.zeros(idx.shape[1], dtype=np.int64)      # x fastest
+    for d in range(dim):
+        vnew = vnew * n + new_idx[d]
+    out = np.empty(n ** dim, dtype=np.int64)
+    out[vnew] = np.arange(n ** dim)
+    return out
+
+
+def scramble_mesh(mesh: GlobalMesh, seed: int = 0, permute: bool = True,
+                  device=None) -> GlobalMesh:
+    """Destroy the structured element layout: a random element permutation
+    and a random proper rotation of every element's local frame. With
+    ``permute=False`` only the local frames rotate: elements keep their
+    spatial order, so contiguous partitions stay localized while
+    neighbours still meet in arbitrary orientations. The geometry is
+    exact (recomputed by ``geometric_factors`` on ``device``), so
+    solutions compare with the structured original's.
+
+    The decisions depend only on (num_elements, seed), not on the order:
+    ``scramble_mesh(mesh_builder(o), seed)`` gives element-wise consistent
+    meshes at every order, as the composite's mesh builder must.
+    """
+    dim = mesh.dim
+    n = mesh.poly_degree + 1
+    E = mesh.num_elements
+    rng = np.random.default_rng(seed)
+    elem_perm = rng.permutation(E) if permute else np.arange(E)
+    rots = _proper_rotations(dim)
+    rot_choice = rng.integers(0, len(rots), size=E)
+    node_perms = np.stack([_rotation_node_perm(p, f, n, dim)
+                           for p, f in rots])
+    # out[e] = arr[elem_perm[e]][node_perms[rot_choice[elem_perm[e]]]]
+    rows = elem_perm[:, None]
+    cols = node_perms[rot_choice[elem_perm]]
+
+    def take(arr):
+        return arr[rows, cols]
+
+    coords = take(mesh.coords)
+    geom, mass = geometric_factors(coords, dim, mesh.poly_degree,
+                                   device=device)
+    return GlobalMesh(dim=dim, poly_degree=mesh.poly_degree,
+                      elem_shape=mesh.elem_shape, coords=coords,
+                      glo_num=take(mesh.glo_num),
+                      node_degree=take(mesh.node_degree),
+                      dirichlet_mask=take(mesh.dirichlet_mask),
+                      geom=geom, mass=mass, structured_layout=False)

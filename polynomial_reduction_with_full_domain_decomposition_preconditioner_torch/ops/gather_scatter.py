@@ -25,7 +25,43 @@ import numpy as np
 import torch
 
 __all__ = ["lattice_face_sum", "structured_dssum", "scatter_to_nodes",
-           "gather_to_points", "exchange", "dssum"]
+           "gather_to_points", "exchange", "dssum", "ordered_sum_plan",
+           "ordered_scatter_add"]
+
+
+def ordered_sum_plan(index, size: int, device) -> dict | None:
+    """Host plan of a scatter-add without atomics: ``index`` gives each
+    source entry's target in [0, size) (entries outside are dropped).
+    Returns the targets that receive (``rows``), the source entries sorted
+    by target, ascending within a target (``perm``), and each target's
+    count (``lengths``), as int64 tensors on ``device``; None when no
+    entry lands."""
+    idx = np.asarray(index, dtype=np.int64).reshape(-1)
+    src = np.flatnonzero((idx >= 0) & (idx < size))
+    if not src.size:
+        return None
+    perm = src[np.argsort(idx[src], kind="stable")]
+    rows, lengths = np.unique(idx[perm], return_counts=True)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return {"rows": as_t(rows), "perm": as_t(perm), "lengths": as_t(lengths)}
+
+
+def ordered_scatter_add(target, src, plan):
+    """``target`` (flat) plus the scatter-add of the flat ``src`` by an
+    ``ordered_sum_plan``: each target's entries summed in one fixed order
+    (ascending source position) by ``segment_reduce``, in f32 for
+    reduced-precision fields, then added once. The same on every run, and
+    the same on the card as on the CPU: the values go in as one (N, 1)
+    column, which CUDA's segment_reduce sums with one thread a segment,
+    first to last, as the CPU does (a 1-D input goes to a tree-ordered
+    segmented reduction instead)."""
+    if plan is None:
+        return target
+    acc = torch.float64 if src.dtype == torch.float64 else torch.float32
+    seg = torch.segment_reduce(src.to(acc)[plan["perm"]].unsqueeze(1), "sum",
+                               lengths=plan["lengths"], axis=0,
+                               unsafe=True).squeeze(1)
+    return target.index_add(0, plan["rows"], seg.to(target.dtype))
 
 
 def scatter_to_nodes(u_pts, gather_ids, num_local_nodes: int):

@@ -1,6 +1,9 @@
 """Tensor-product order transfer and dense grid-axis contractions.
 
-Port of the JAX package's ``ops/interp.py`` (the lattice forms).
+Port of the JAX package's ``ops/interp.py``: the lattice forms, and the
+element-layout forms of unstructured meshes (``tensor_apply``,
+``prolongate``, ``restrict``; prolongation u_f = (J x J x J) u_c with
+J = interp(n_c -> n_f), restriction its adjoint with J^T).
 """
 
 from __future__ import annotations
@@ -9,7 +12,33 @@ import torch
 
 from .sem import dmul
 
-__all__ = ["lattice_tensor_apply", "axis_contract"]
+__all__ = ["lattice_tensor_apply", "axis_contract", "tensor_apply",
+           "prolongate", "restrict"]
+
+
+def tensor_apply(u, M, dim: int):
+    """Apply the 1-D operator M (n_out, n_in) along every node axis of an
+    element-layout field u (..., E, n_in^3); returns (..., E, n_out^3)."""
+    if dim != 3:
+        raise NotImplementedError("the port's element transfers are 3-D")
+    n_out, n_in = M.shape
+    lead = u.shape[:-1]
+    U = u.reshape(-1, n_in, n_in, n_in)              # (e, z, y, x)
+    U = torch.matmul(U, M.T)                         # x
+    U = torch.matmul(M, U)                           # y
+    B = U.shape[0]
+    U = torch.matmul(M, U.reshape(B, n_in, n_out * n_out))   # z
+    return U.reshape(lead + (n_out ** 3,))
+
+
+def prolongate(u_c, J, dim: int):
+    """Coarse -> fine: J is interp_matrix(n_c, n_f), shape (n_f, n_c)."""
+    return tensor_apply(u_c, J, dim)
+
+
+def restrict(r_f, J, dim: int):
+    """Fine -> coarse adjoint transfer: uses J^T."""
+    return tensor_apply(r_f, J.T, dim)
 
 
 def lattice_tensor_apply(U, M, dim: int):

@@ -10,13 +10,64 @@ separate op (ops/gather_scatter.py).
 Both forms also take a (P, Mz, My, Mx) stack of slab shards: every shard
 is a whole number of elements in z and both are element-local, so they
 run once on the contiguous (P*Mz, My, Mx) view.
+
+The element-layout forms (``stiffness_apply``, ``stiffness_diagonal``)
+serve unstructured meshes: fields (..., E, n^3) with the local ordering
+x fastest, geometry a tuple of six such factor tensors. The apply runs
+kernel K1 on the (E*n, n, n) lattice view of the element stack, in which
+every n^3 block is one element (the six factors viewed alike); the
+diagonal is torch matmuls, accumulated in f32 for bf16 factors.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dmul", "stiffness_apply_lattice", "stiffness_diagonal_lattice"]
+__all__ = ["dmul", "stiffness_apply_lattice", "stiffness_diagonal_lattice",
+           "stiffness_apply", "stiffness_diagonal"]
+
+
+def stiffness_apply(u, G, D, dim: int):
+    """Local SEM stiffness apply element by element on an element-layout
+    field u (..., E, n^3), G the six factors (G_rr, G_ss, G_tt, G_rs,
+    G_rt, G_st) of u's shape: Au = sum_a D_a^T sum_b G_ab D_b u, by K1 on
+    the (E*n, n, n) lattice view (its plain twin on CPU tensors; f32
+    accumulation for bf16, D from the f64 GLL table). Returns the
+    non-assembled image in u's dtype."""
+    if dim != 3 or len(G) != 6:
+        raise NotImplementedError("the port's element operator is 3-D")
+    if u.numel() == 0:
+        return u.clone()
+    n = D.shape[0]
+    from .kernels import stiffness_lattice_3d
+    view = lambda t: t.reshape(-1, n, n)
+    return stiffness_lattice_3d(view(u), tuple(view(g) for g in G),
+                                n).view(u.shape)
+
+
+def stiffness_diagonal(G, D, dim: int):
+    """Exact diagonal of the local operator in the element layout (..., E,
+    n^3), closed form (setup only); bf16 factors are summed in f32 and
+    rounded once."""
+    if dim != 3 or len(G) != 6:
+        raise NotImplementedError("the port's element operator is 3-D")
+    from .kernels import _acc_dtype, _diff
+    n = D.shape[0]
+    out_dtype = G[0].dtype
+    acc = _acc_dtype(out_dtype)
+    Dm = _diff(n, acc, G[0].device)
+    D2 = Dm * Dm
+    d = torch.diagonal(Dm)
+    shape = G[0].shape
+    g = [x.to(acc).reshape(-1, n, n, n) for x in G]
+    t_r = torch.matmul(g[0], D2)
+    t_s = torch.matmul(D2.T, g[1])
+    t_t = torch.matmul(D2.T, g[2].reshape(-1, n, n * n)).view(g[2].shape)
+    di = d.view(1, 1, 1, n)
+    dj = d.view(1, 1, n, 1)
+    dk = d.view(1, n, 1, 1)
+    t_cross = 2.0 * (di * dj * g[3] + di * dk * g[4] + dj * dk * g[5])
+    return (t_r + t_s + t_t + t_cross).reshape(shape).to(out_dtype)
 
 
 def dmul(D, U, axis: int, n: int):

@@ -1,10 +1,15 @@
 """The fine-level SEM Poisson problem ("Domain" layer).
 
-Port of the JAX package's ``solvers/domain.py`` for a structured slab
-lattice: the device-resident geometry, the matrix-free operator (kernel
-K1), the structured dssum (kernel K2, and the slab exchange across
-shards), the outer Krylov solves, manufactured solutions and the host <->
-device field layout.
+Port of the JAX package's ``solvers/domain.py``: the device-resident
+geometry, the matrix-free operator, the dssum, the outer Krylov solves,
+manufactured solutions and the host <-> device field layout. A
+structured slab lattice runs the operator through kernel K1 and the
+structured dssum through kernel K2 (and the slab exchange across
+shards). An unstructured partition (``sharded.structured is None``:
+scrambled or pebble-bed meshes) keeps fields in the element layout, flat
+(E*npe,) on one shard and (P, E*npe) stacked, with the element-layout
+operator (ops/sem.stiffness_apply) and the face-block dssum
+(ops/face_dssum.py; its interface psum through the comm).
 
 One shard: fields are (Mz, My, Mx) tensors, as the JAX package's
 single-device Domain holds them. P > 1 shards (the JAX package's SPMD
@@ -25,13 +30,35 @@ import torch
 from .. import resolve_device
 from ..mesh.layout import elements_to_lattice, lattice_to_elements
 from ..mesh.partition import ShardedDomain
+from ..ops import face_dssum as fd
 from ..ops import gather_scatter as gs
 from ..ops import sem
 from ..runtime.comm import LocalComm
 from ..utils.gll import diff_matrix
 from . import krylov
 
-__all__ = ["Domain"]
+__all__ = ["Domain", "shard_face_plans"]
+
+
+def shard_face_plans(sd):
+    """Each shard's face plan (ops/face_dssum.build_face_plan) from its
+    global node ids, global multiplicities and interface nodes."""
+    n = sd.poly_degree + 1
+    plans = []
+    for k in range(sd.num_shards):
+        ivd = sd.inv_degree_pts[k]
+        deg = np.where(ivd > 0, np.round(1.0 / np.maximum(ivd, 1e-30)),
+                       0.0).astype(np.int64)
+        glo_k = sd.glo_num[k].reshape(-1)
+        uniq_k = np.unique(glo_k[glo_k >= 0])
+        bl, bg = sd.bnode_local[k], sd.bnode_global[k]
+        real_b = bl < uniq_k.size
+        iface = {int(uniq_k[l]): int(g)
+                 for l, g in zip(bl[real_b], bg[real_b])}
+        plans.append(fd.build_face_plan(sd.glo_num[k], n,
+                                        deg.reshape(sd.glo_num[k].shape),
+                                        iface_of_node=iface)[0])
+    return plans
 
 
 @dataclass
@@ -39,12 +66,16 @@ class DomainArrays:
     """Device-resident state: geometry as a tuple of 6 per-factor
     lattices, the Dirichlet mask and inverse multiplicities (lattices; all
     stacked over the shards when P > 1), the differentiation matrix, and
-    each shard's real slab layers (P,)."""
+    each shard's real slab layers (P,). On an unstructured partition the
+    geometry factors are (E, npe) element blocks, mask and weight flat
+    fields, ``layers`` is None and ``fb`` the face-block dssum plan
+    (ops/face_dssum.device_plan)."""
     geom: tuple
     mask: torch.Tensor
     inv_degree_pts: torch.Tensor
     D: torch.Tensor
-    layers: torch.Tensor
+    layers: torch.Tensor | None
+    fb: dict | None = None
 
 
 def top_planes(layers, n: int, planes: int):
@@ -58,7 +89,7 @@ class Domain:
     """User-facing fine-level problem.
 
     Args:
-      sharded: host partition (mesh/partition.partition_mesh), structured.
+      sharded: host partition (mesh/partition.partition_mesh).
       dtype: solver precision (torch.float32 or torch.float64).
       device: None for the card (raises without CUDA), or e.g. "cpu".
       comm: the collectives over the shards (runtime/comm.py); default
@@ -68,10 +99,6 @@ class Domain:
 
     def __init__(self, sharded: ShardedDomain, *, dtype=torch.float32,
                  device=None, comm=None):
-        if sharded.structured is None:
-            raise NotImplementedError(
-                "a Domain on a structured=False partition needs the "
-                "element-layout operator, ROADMAP item 13")
         if sharded.dim != 3:
             raise NotImplementedError("the port's Domain is 3-D")
         P = sharded.num_shards
@@ -85,8 +112,11 @@ class Domain:
         self.dim = sharded.dim
         self.poly_degree = sharded.poly_degree
         self.spmd = P > 1
-        self.ragged = sharded.structured.ragged
         n = sharded.poly_degree + 1
+        if sharded.structured is None:
+            self._init_unstructured()
+            return
+        self.ragged = sharded.structured.ragged
         self.local_grid = sharded.structured.local_grid()
         self.lattice_shape = tuple(g * n for g in self.local_grid)
 
@@ -110,6 +140,28 @@ class Domain:
         self._top = (top_planes(self.arrays.layers, n, self.lattice_shape[0])
                      if self.spmd and self.ragged else None)
 
+    def _init_unstructured(self):
+        """Element-layout arrays and the face-block dssum plan, one plan a
+        shard from its global node ids, global multiplicities and
+        interface nodes, lowered to one index set over the stack."""
+        sd = self.sharded
+        n = sd.poly_degree + 1
+        self.ragged = False
+        self.local_grid = self.lattice_shape = None
+        self._top = None
+        fb = fd.device_plan(fd.lower_plans(shard_face_plans(sd), n,
+                                           sd.elems_per_shard),
+                            sd.num_boundary_global, self.device)
+        self.arrays = DomainArrays(
+            geom=tuple(self.shard_put(np.ascontiguousarray(sd.geom[..., k]),
+                                      self.dtype)
+                       for k in range(sd.geom.shape[-1])),
+            mask=self.shard_put(sd.dirichlet_mask, self.dtype),
+            inv_degree_pts=self.shard_put(sd.inv_degree_pts, self.dtype),
+            D=torch.as_tensor(diff_matrix(n), device=self.device).to(
+                self.dtype),
+            layers=None, fb=fb)
+
     def shard_put(self, stacked, dtype=None):
         """A per-shard host array (leading axis = shards) -> a device
         tensor: the one shard squeezed when P = 1, the stack otherwise."""
@@ -132,22 +184,37 @@ class Domain:
     def _ops(self):
         """(operator, dssum, dot, dot2) closures over the device arrays.
         ``operator.fused_dssum`` is the fused p -> (A p, QQt A p) where the
-        JAX package builds one (SPMD, and ragged or slabs of >= 3 layers),
-        else None."""
+        JAX package builds one (SPMD structured, and ragged or slabs of
+        >= 3 layers), else None. An unstructured partition has the
+        element-layout operator and the face-block dssum."""
         a = self.arrays
         n = self.poly_degree + 1
         comm = self.comm if self.spmd else None
         top = self._top
 
-        def operator(u):
-            return sem.stiffness_apply_lattice(u, a.geom, a.D, self.dim)
+        if a.fb is not None:
+            npe = self.sharded.num_points_per_elem
 
-        def dssum(u, apply_mask=True, apply_weight=False):
-            return gs.structured_dssum(
-                u, n=n, dim=self.dim, mask=a.mask,
-                inv_degree_pts=a.inv_degree_pts, comm=comm,
-                apply_mask=apply_mask, apply_weight=apply_weight,
-                top_plane=top)
+            def operator(u):
+                ue = u.reshape(u.shape[:-1] + (-1, npe))
+                return sem.stiffness_apply(ue, a.geom, a.D,
+                                           self.dim).reshape(u.shape)
+
+            def dssum(u, apply_mask=True, apply_weight=False):
+                return fd.face_dssum(
+                    u, a.fb, mask=a.mask, inv_degree_pts=a.inv_degree_pts,
+                    comm=comm, apply_mask=apply_mask,
+                    apply_weight=apply_weight)
+        else:
+            def operator(u):
+                return sem.stiffness_apply_lattice(u, a.geom, a.D, self.dim)
+
+            def dssum(u, apply_mask=True, apply_weight=False):
+                return gs.structured_dssum(
+                    u, n=n, dim=self.dim, mask=a.mask,
+                    inv_degree_pts=a.inv_degree_pts, comm=comm,
+                    apply_mask=apply_mask, apply_weight=apply_weight,
+                    top_plane=top)
 
         def dot(x, y):
             return krylov.tree_dot(x, y, self.comm)
@@ -158,8 +225,8 @@ class Domain:
                                        krylov.tree_dot(z, w))
 
         op_dssum = None
-        if self.spmd and (self.ragged
-                          or self.sharded.structured.slab_elems >= 3):
+        if self.spmd and a.fb is None and (
+                self.ragged or self.sharded.structured.slab_elems >= 3):
             # the JAX package computes the boundary layers first, starts
             # the slab ppermutes on their planes and overlaps them with the
             # interior apply, bitwise equal to operator then dssum. One
@@ -233,7 +300,10 @@ class Domain:
 
     @property
     def field_shape(self):
-        """One shard's device lattice shape."""
+        """One shard's device field shape: its lattice, or (E*npe,) flat
+        on an unstructured partition."""
+        if self.lattice_shape is None:
+            return (self.sharded.points_per_shard,)
         return self.lattice_shape
 
     def to_device_field(self, host_field: np.ndarray):
@@ -245,8 +315,9 @@ class Domain:
         if self.spmd:
             vals = np.where(np.repeat(st.elem_valid, st.num_points_per_elem,
                                       axis=1), vals, 0.0)
-        lat = np.stack([self._host_elem_to_lattice(v) for v in vals])
-        return self.shard_put(lat, self.dtype)
+        if self.lattice_shape is not None:
+            vals = np.stack([self._host_elem_to_lattice(v) for v in vals])
+        return self.shard_put(vals, self.dtype)
 
     def from_device_field(self, u) -> np.ndarray:
         """Device field -> element-ordered host values, shape (P, E*npe)."""
@@ -255,6 +326,8 @@ class Domain:
             vals = vals.float()
         P = self.sharded.num_shards
         vals = vals.cpu().numpy().reshape((P,) + self.field_shape)
+        if self.lattice_shape is None:
+            return vals
         return np.stack([self._host_lattice_to_elem(v) for v in vals]
                         ).reshape(P, -1)
 

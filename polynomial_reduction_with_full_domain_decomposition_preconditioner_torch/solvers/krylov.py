@@ -18,14 +18,17 @@ sums that over the processes.
 
 PyTorch runs eagerly, so the loop structure is plain Python: the
 iteration counters are Python ints and every scalar of the recurrence is
-a 0-d tensor in the field dtype (bf16 for the bf16 inner solve). A solve
-with ``tolerance == 0`` (the fixed inner solve) never reads a tensor on
-the host; its breakdown guards are ``torch.where``. Otherwise each step
-reads one pair of flags (converged-or-NaN, breakdown) with ``.tolist()``.
-A Krylov basis is one contiguous (m+1, numel) tensor.
+a 0-d tensor in the field dtype (bf16 for the bf16 inner solve). Each
+step reads one pair of flags (converged-or-NaN, breakdown) with
+``.tolist()``, whatever the tolerance, so a cycle ends at a breakdown as
+the JAX package's does. A Krylov basis is one contiguous (m+1, numel)
+tensor.
 
-The composite inner solve at P > 1 is rank-local, as under the JAX
-package's ``shard_map`` (its composite dot has no psum): ``batched=True``
+The composite inner solve is rank-local at every shard count, as under
+the JAX package's ``shard_map`` (its composite dot has no psum): it runs
+a fixed count with ``batched=True`` on the stacked fields of P >= 1
+shards, its breakdown guards ``torch.where`` (FGMRES reads one flag a
+step, whether any shard's cycle ended); ``batched=True``
 solves every shard's problem on the stacked fields at once with its own
 Krylov scalars. Its ``dot`` is ``shard_dot`` (a (P,) tensor, or (k, P)
 for a stacked basis prefix); every scalar of the recurrence is a (P,)
@@ -110,7 +113,8 @@ def _shard_gram(A, B):
     P blocks); reduced-precision rows sum in f32 and round once, as
     ``torch.dot`` does."""
     k, P = A.shape[0], A.shape[1]
-    C = torch.mm(A.reshape(k * P, -1), B.reshape(P, -1).T)
+    n = A.shape[2:].numel()          # explicit: a leaf may be empty
+    C = torch.mm(A.reshape(k * P, n), B.reshape(P, n).T)
     return C.view(k, P, P).diagonal(dim1=1, dim2=2)
 
 
@@ -206,7 +210,7 @@ def fcg(operator, precond, dssum_plain, dot, dot2, f, *,
                       float("nan"), dtype=dtype, device=r0_norm.device)
     hist[0] = r0_norm
     target = _target(tolerance, use_relative, r0_norm)
-    check = tolerance > 0
+    check = not batched
     # batched: a shard whose residual norm turns NaN ends its solve there
     # (the JAX package's per-shard loop exit); its u stays as that step
     # left it
@@ -277,7 +281,6 @@ def fgmres(operator, precond, dssum_plain, dot, f, *,
     r0_norm = _res_norm(f, dssum_plain, dot)
     device = r0_norm.device
     target = _target(tolerance, use_relative, r0_norm)
-    check = tolerance > 0
     hist = torch.full((max_iterations + 1,), float("nan"), dtype=dtype,
                       device=device)
     hist[0] = r0_norm
@@ -285,7 +288,7 @@ def fgmres(operator, precond, dssum_plain, dot, f, *,
     one = torch.ones((), dtype=dtype, device=device)
 
     it = 0
-    done = check and bool(r0_norm < target)
+    done = bool(r0_norm < target)
     last_rnorm = r0_norm
     while not done:
         if it > 0:                         # residual at restart
@@ -347,12 +350,10 @@ def fgmres(operator, precond, dssum_plain, dot, f, *,
             it += 1
             jlast = j
             last_rnorm = rnorm
-            if check:
-                tol_or_nan = (rnorm < target) | torch.isnan(rnorm)
-                hit_tol, breakdown = torch.stack(
-                    [tol_or_nan, alpha == 0]).tolist()
-                if hit_tol or breakdown:
-                    break
+            tol_or_nan = (rnorm < target) | torch.isnan(rnorm)
+            hit_tol, breakdown = torch.stack([tol_or_nan, alpha == 0]).tolist()
+            if hit_tol or breakdown:
+                break
 
         # masked back-substitution over columns 0..jlast
         y = torch.zeros((m,), dtype=dtype, device=device)
@@ -375,34 +376,55 @@ def _rows_combine(h, V):
     """sum_i h[i, p] V[i, p] over a stacked basis V (k, P, ...) of one
     leaf with per-shard coefficients h (k, P): (P, ...)."""
     k, P = h.shape
-    out = torch.einsum("ip,ipn->pn", h, V.reshape(k, P, -1))
+    out = torch.einsum("ip,ipn->pn", h, V.reshape(k, P, V.shape[2:].numel()))
     return out.reshape(V.shape[1:])
 
 
 def _rows_at(V, j):
-    """Row j[p] of shard p of a stacked basis V (k, P, ...): (P, ...)."""
+    """Row j[p] of shard p of a stacked basis V (k, P, ...): (P, ...). A
+    host int j (every shard at the same row) is a view."""
+    if isinstance(j, int):
+        return V[j]
     P = V.shape[1]
-    idx = j.view(1, P, 1).expand(1, P, V[0, 0].numel())
-    return torch.gather(V.reshape(V.shape[0], P, -1), 0, idx)[0] \
+    n = V.shape[2:].numel()
+    idx = j.view(1, P, 1).expand(1, P, n)
+    return torch.gather(V.reshape(V.shape[0], P, n), 0, idx)[0] \
         .reshape(V.shape[1:])
 
 
 def _set_rows(V, j, x):
     """Row j[p] of shard p of the stacked basis V set to x[p], in place."""
+    if isinstance(j, int):
+        V[j].copy_(x)
+        return
     P = V.shape[1]
-    n = V[0, 0].numel()
+    n = V.shape[2:].numel()
     V.view(V.shape[0], P, n).scatter_(
         0, j.view(1, P, 1).expand(1, P, n), x.reshape(1, P, n).to(V.dtype))
 
 
 def _at(a, j):
-    """a[j[p], p] of a (k, P) table: (P,)."""
+    """a[j[p], p] of a (k, P) table: (P,), a copy."""
+    if isinstance(j, int):
+        return a[j].clone()
     return torch.gather(a, 0, j.view(1, -1))[0]
 
 
 def _set_at(a, j, v):
     """a[j[p], p] = v[p], in place."""
+    if isinstance(j, int):
+        a[j] = v
+        return
     a.scatter_(0, j.view(1, -1), v.view(1, -1).to(a.dtype))
+
+
+def _set_col(A, j, col):
+    """Column j[p] of shard p of an (m + 1, m, P) table set to col[:, p]."""
+    if isinstance(j, int):
+        A[:, j] = col
+        return
+    k, _, P = A.shape
+    A.scatter_(1, j.view(1, 1, P).expand(k, 1, P), col.view(k, 1, P))
 
 
 def _back_substitute(H, gam, j):
@@ -438,7 +460,14 @@ def _fgmres_batched(operator, precond, dssum_plain, dot, f, *,
     round-off, and this costs no operator apply and no dssum. Rows of V
     and Z beyond a shard's j are stale and masked out. The basis is one
     (m + 1, P, ...) tensor per field leaf. A fixed iteration count (no
-    tolerance): nothing is read on the host."""
+    tolerance); each step reads the shards' cycle-end flags on the host
+    and skips the masked end and restart when none ended (they would
+    change nothing): a cycle ends at a full basis or a breakdown, rarely,
+    and on a host-bound solve the read costs less than the launches it
+    saves. While every live shard is at the same column (always at
+    P = 1, and until the first shard's cycle ends alone) the column is a
+    host int: rows are views, the Givens loop runs over the columns built,
+    the same numbers as the masked selects."""
     m = num_vectors
     leaves = _leaves(f)
     dtype = leaves[0].dtype
@@ -492,25 +521,30 @@ def _fgmres_batched(operator, precond, dssum_plain, dot, f, *,
         return y
 
     start(torch.ones(P, dtype=torch.bool, device=device), leaves, r0_norm)
+    ju = 0          # the shards' common column on the host, or None
     for it in range(max_iterations):
         if it > 0:
             fin = (ended | (j == m)) & ~dead
-            y = finish(fin)
-            dead = dead | (fin & torch.isnan(rnorm))
-            rs = fin & ~dead
-            w = torch.where(iota == 0, c0, 0.0) \
-                - torch.einsum("ikp,kp->ip", Hraw, y)
-            start(rs, [_rows_combine(w, Vl) for Vl in V],
-                  torch.abs(_at(gam, j)))
+            flags = fin.tolist()
+            if any(flags):
+                y = finish(fin)
+                dead = dead | (fin & torch.isnan(rnorm))
+                rs = fin & ~dead
+                w = torch.where(iota == 0, c0, 0.0) \
+                    - torch.einsum("ikp,kp->ip", Hraw, y)
+                start(rs, [_rows_combine(w, Vl) for Vl in V],
+                      torch.abs(_at(gam, j)))
+                ju = 0 if all(flags) else None
             j.copy_(torch.where(dead, 0, j))   # an ended solve steps on idle
-        z = precond(as_field([_rows_at(Vl, j) for Vl in V]))
+        jj = j if ju is None else ju
+        z = precond(as_field([_rows_at(Vl, jj) for Vl in V]))
         if z_dtype is not None:
             zq = _tmap(lambda zl: zl.to(z_dtype), z)
             z = _tmap(lambda zl: zl.to(dtype), zq)
         else:
             zq = z
         for Zl, zl in zip(Z, _leaves(zq)):
-            _set_rows(Zl, j, zl)
+            _set_rows(Zl, jj, zl)
         if op_dssum is None:
             q = operator(z)
             qq = dssum_plain(q)
@@ -518,40 +552,43 @@ def _fgmres_batched(operator, precond, dssum_plain, dot, f, *,
             q, qq = op_dssum(z)
         # H[i] = <q, QQt V[i]>_masked for i <= j, per shard
         h = dot(as_field(V), qq).to(dtype)
-        h = torch.where(iota <= j, h, 0.0)
+        h = torch.where(iota <= jj, h, 0.0)
         q = as_field([ql - _rows_combine(h, Vl)
                       for ql, Vl in zip(_leaves(q), V)])
         alpha = torch.sqrt(torch.clamp(dot(q, dssum_plain(q)), min=0.0))
         alpha_safe = torch.where(alpha > 0, alpha, one)
-        col = j.view(1, 1, P).expand(m + 1, 1, P)
-        Hraw.scatter_(1, col, torch.where(iota == j + 1, alpha_safe, h)
-                      .view(m + 1, 1, P))
+        _set_col(Hraw, jj, torch.where(iota == jj + 1, alpha_safe, h))
 
-        hcol = h
-        for i in range(m):                 # accumulated Givens rotations
-            act = i < j
-            hi, hi1 = hcol[i], hcol[i + 1]
-            hcol = hcol.clone()
-            hcol[i] = torch.where(act, c[i] * hi + s[i] * hi1, hi)
-            hcol[i + 1] = torch.where(act, -s[i] * hi + c[i] * hi1, hi1)
-        hj = _at(hcol, j)
+        hcol = h.clone()
+        # accumulated Givens rotations over each shard's columns built
+        for i in range(m if ju is None else ju):
+            hi, hi1 = hcol[i].clone(), hcol[i + 1].clone()
+            new_i, new_i1 = c[i] * hi + s[i] * hi1, -s[i] * hi + c[i] * hi1
+            if ju is None:
+                act = i < j
+                new_i = torch.where(act, new_i, hi)
+                new_i1 = torch.where(act, new_i1, hi1)
+            hcol[i], hcol[i + 1] = new_i, new_i1
+        hj = _at(hcol, jj)
         beta = torch.sqrt(hj ** 2 + alpha ** 2)
         beta_safe = torch.where(beta > 0, beta, one)
         cj = hj / beta_safe
         sj = alpha / beta_safe
-        _set_at(hcol, j, beta)
-        gj = _at(gam, j)
-        _set_at(gam, j + 1, -sj * gj)
-        _set_at(gam, j, cj * gj)
+        _set_at(hcol, jj, beta)
+        gj = _at(gam, jj)
+        _set_at(gam, jj + 1, -sj * gj)
+        _set_at(gam, jj, cj * gj)
         rnorm = torch.abs(-sj * gj)
-        H.scatter_(1, col, hcol.view(m + 1, 1, P))
-        _set_at(c, j, cj)
-        _set_at(s, j, sj)
+        _set_col(H, jj, hcol)
+        _set_at(c, jj, cj)
+        _set_at(s, jj, sj)
         for Vl, ql in zip(V, _leaves(q)):
-            _set_rows(Vl, j + 1, ql * _bc(1.0 / alpha_safe, ql))
+            _set_rows(Vl, jj + 1, ql * _bc(1.0 / alpha_safe, ql))
         hist[it + 1] = torch.where(dead, nan, rnorm)
         ended = torch.isnan(rnorm) | (alpha == 0)
         j = j + 1
+        if ju is not None:
+            ju += 1
     finish(~dead)
 
     # a fixed count has no tolerance to reach: not converged, as fgmres

@@ -56,7 +56,13 @@ def jacobi(domain) -> Preconditioner:
 
     def build(arrays, extra, ops):
         _, dssum, _, _ = ops
-        inv_diag = _inv_diag(arrays.geom, arrays.D, domain.dim, dssum)
+        if arrays.fb is not None:
+            # an unstructured partition: element-layout factors
+            d = sem.stiffness_diagonal(arrays.geom, arrays.D, domain.dim)
+            d = dssum(d.reshape(arrays.mask.shape), apply_mask=False)
+            inv_diag = torch.where(d > 0, 1.0 / d, torch.zeros_like(d))
+        else:
+            inv_diag = _inv_diag(arrays.geom, arrays.D, domain.dim, dssum)
 
         def precond(r):
             return dssum(r, apply_mask=True) * inv_diag

@@ -137,7 +137,10 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
                  chain_info: dict | None = None) -> Preconditioner:
     """Build the composite DD + polynomial-reduction preconditioner.
 
-    domain: the fine-level Domain (structured, one or more slab shards).
+    domain: the fine-level Domain: structured (one or more slab shards),
+      or an unstructured partition, which goes to
+      solvers/unstructured.composite_dd_unstructured (``chain_cache`` is
+      then its ``setup_cache``, ROADMAP item 13b).
     mesh_builder(N_c): the same element grid meshed at order N_c.
     poly_reduction: order step of the level hierarchy N, N-r, ..., 1.
     subdomain_overlap: ring thickness in layers (checked against the
@@ -183,8 +186,19 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
                          "(use 'amg', 'fem-amg', 'jacobi' or 'none')")
     sd = domain.sharded
     if sd.structured is None:
-        raise NotImplementedError(
-            "the composite on a structured=False partition is ROADMAP item 13")
+        # generic (non-slab) partitions: the unstructured composite
+        from .unstructured import composite_dd_unstructured
+        if far_coarsen not in ("auto", 1):
+            raise ValueError("far_coarsen requires a structured slab "
+                             "partition (z-layer merging)")
+        return composite_dd_unstructured(
+            domain, mesh_builder, poly_reduction,
+            subdomain_overlap=subdomain_overlap,
+            superdomain_overlap=superdomain_overlap,
+            num_iterations=num_iterations, inner=inner,
+            inner_solver=inner_solver, num_vcycles=num_vcycles,
+            cheby_order=cheby_order, ptype=ptype, max_coarse=max_coarse,
+            fine_mesh=fine_mesh, setup_cache=chain_cache)
     if sd.num_shards > 1:
         return _composite_shards(
             domain, mesh_builder, poly_reduction, subdomain_overlap,
@@ -283,15 +297,8 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
         return [lattice_face_sum_3d(parts[0], n,
                                     mask=mask if apply_mask else None)]
 
-    def comp_dot(a, b):
-        # rank-local plain point-space dot (no multiplicity weight)
-        return krylov.tree_dot(a, b)
-
     def A_mf(x):
         return comp_dssum(comp_operator(x), apply_mask=True)
-
-    def comp_dot2(a, b, c, d):
-        return comp_dot(a, b), comp_dot(c, d)
 
     if inner in ("amg", "jacobi"):
         # continuous inverse assembled diagonal of the composite operator
@@ -386,22 +393,17 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
 
         def _solve_inner(r):
             # STYPE -> PTYPE cast at the tree-operator boundary; with one
-            # group the composite right-hand side is the residual itself
-            f_comp = [r.to(dtype)]
-            dssum_c = lambda rr: comp_dssum(rr, apply_mask=True)
-            if inner_solver == "fcg":
-                res = krylov.fcg(
-                    comp_operator, inner_precond, dssum_c, comp_dot,
-                    comp_dot2, f_comp, max_iterations=num_iterations,
-                    tolerance=0.0)
-            else:
-                res = krylov.fgmres(
-                    comp_operator, inner_precond, dssum_c, comp_dot, f_comp,
-                    max_iterations=num_iterations,
-                    num_vectors=num_iterations, tolerance=0.0)
-            z = res.u[0].to(domain.dtype)
+            # group the composite right-hand side is the residual itself.
+            # The rank-local inner solve of every shard count, on the
+            # (1, ...) stack of the one shard
+            f_comp = [r.to(dtype)[None]]
+            res = _rank_local_solve(
+                _on_stack(comp_operator), _on_stack(inner_precond),
+                _on_stack(lambda rr: comp_dssum(rr, apply_mask=True)),
+                f_comp, inner_solver, num_iterations)
+            z = res.u[0][0].to(domain.dtype)
             return (dssum_f(z, apply_mask=True, apply_weight=True),
-                    res.residual_history)
+                    res.residual_history[:, 0])
 
         def precond(r):
             return _solve_inner(r)[0]
@@ -415,6 +417,31 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
         return precond
 
     return Preconditioner(build=build, extra=extra)
+
+
+def _on_stack(fn):
+    """A composite op on one shard's parts as an op on their (1, ...)
+    stacks (views both ways)."""
+    return lambda parts: [x[None] for x in fn([p[0] for p in parts])]
+
+
+def _rank_local_solve(operator, precond, dssum_c, f_comp, inner_solver,
+                      num_iterations):
+    """The composite's fixed inner FGMRES or FCG, rank-local: every shard
+    of the stacked parts (leading axis P >= 1) runs its own recurrence
+    with its own dots (krylov ``batched=True``, ``shard_dot``), ending and
+    restarting its FGMRES cycle at a breakdown as the JAX package's
+    per-shard loop does."""
+    dot = krylov.shard_dot
+    if inner_solver == "fcg":
+        return krylov.fcg(operator, precond, dssum_c, dot,
+                          lambda a, b, c, d: (dot(a, b), dot(c, d)), f_comp,
+                          max_iterations=num_iterations, tolerance=0.0,
+                          batched=True)
+    return krylov.fgmres(operator, precond, dssum_c, dot, f_comp,
+                         max_iterations=num_iterations,
+                         num_vectors=num_iterations, tolerance=0.0,
+                         batched=True)
 
 
 def _chain_info(chain_info, chain_cache, mesh1, plane_shape, m_last, dim,
@@ -800,9 +827,6 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
 
     comp_dot = krylov.shard_dot
 
-    def comp_dot2(a, b, c, d):
-        return comp_dot(a, b), comp_dot(c, d)
-
     def tree_cascade(r):
         # restriction cascade on the own slab (order N -> ... -> 1)
         r_lvl = [r]
@@ -1030,17 +1054,10 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             # STYPE -> PTYPE cast at the tree-operator boundary; each
             # shard solves its own composite problem
             f_comp = tree_rhs(r.to(dtype))
-            dssum_c = lambda rr: comp_dssum(rr, apply_mask=True)
-            if inner_solver == "fcg":
-                res = krylov.fcg(
-                    comp_operator, inner_precond, dssum_c, comp_dot,
-                    comp_dot2, f_comp, max_iterations=num_iterations,
-                    tolerance=0.0, batched=True)
-            else:
-                res = krylov.fgmres(
-                    comp_operator, inner_precond, dssum_c, comp_dot, f_comp,
-                    max_iterations=num_iterations,
-                    num_vectors=num_iterations, tolerance=0.0, batched=True)
+            res = _rank_local_solve(
+                comp_operator, inner_precond,
+                lambda rr: comp_dssum(rr, apply_mask=True), f_comp,
+                inner_solver, num_iterations)
             # the own-slab group, cast back; the outer dssum stitches it
             z = res.u[0].to(domain.dtype)
             return (dssum_f(z, apply_mask=True, apply_weight=True),

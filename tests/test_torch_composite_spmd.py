@@ -167,6 +167,45 @@ def test_batched_fgmres_matches_reference_restarts(seed, neg, breakdowns):
     assert np.abs(res.u.numpy() - ju).max() <= 1e-13 * np.abs(ju).max()
 
 
+@pytest.mark.parametrize("inner_solver", ["fgmres", "fcg"])
+def test_one_shard_inner_solve_restarts_at_breakdown(inner_solver):
+    # the composite's inner solve at P = 1 runs the rank-local batched
+    # path on the (1, ...) stack of the one shard: an indefinite "dssum"
+    # drives <q, D q> to 0 at step 5 of 7 (a full-length basis, so only a
+    # breakdown ends the cycle); the JAX package's one-device fgmres ends
+    # the cycle there, adds its correction and restarts, and so must the
+    # port; FCG runs the same count with the same scalars
+    n, T = 13, 7
+    rng = np.random.default_rng(1)
+    B = rng.standard_normal((n, n))
+    A = B @ B.T + n * np.eye(n)
+    D = np.ones(n)
+    D[rng.choice(n, 1, replace=False)] = -2.0
+    f = rng.standard_normal(n)
+    invd = 1.0 / np.diag(A)
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers import krylov as jkrylov
+    jargs = (lambda x: A @ x, lambda x: invd * x, lambda x: D * x,
+             jkrylov.tree_dot)
+    if inner_solver == "fcg":
+        jr = jkrylov.fcg(*jargs, lambda a, b, c, d: (jkrylov.tree_dot(a, b),
+                                                     jkrylov.tree_dot(c, d)),
+                         jnp.asarray(f), max_iterations=T, tolerance=0.0)
+    else:
+        jr = jkrylov.fgmres(*jargs, jnp.asarray(f), max_iterations=T,
+                            num_vectors=T, tolerance=0.0)
+    jh, ju = np.asarray(jr.residual_history), np.asarray(jr.u)
+    At, Dt, it = (torch.as_tensor(x) for x in (A, D, invd))
+    one = lambda fn: lambda parts: [fn(parts[0])]
+    res = tsub._rank_local_solve(
+        one(lambda x: (At @ x[0])[None]), one(lambda x: it * x),
+        one(lambda x: Dt * x), [torch.as_tensor(f)[None]], inner_solver, T)
+    th = res.residual_history[:, 0].numpy()
+    if inner_solver == "fgmres":
+        assert (jh[1:] == 0).any()           # the breakdown happened
+    np.testing.assert_allclose(th, jh, rtol=1e-10, atol=0.0)
+    assert np.abs(res.u[0][0].numpy() - ju).max() <= 1e-13 * np.abs(ju).max()
+
+
 def test_shard_dot_is_per_shard():
     rng = np.random.default_rng(1)
     a = [torch.as_tensor(rng.standard_normal((4, 3, 5))),

@@ -96,6 +96,61 @@ def test_port_runs_with_jax_blocked():
     assert int(summary[0].split()[1]) >= 25
 
 
+_UNSTRUCTURED = textwrap.dedent("""
+    import importlib, importlib.abc, sys
+    from functools import partial
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith("jax.") or "_tpu" in name:
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.modules["jax"] = None
+    sys.meta_path.insert(0, Block())
+    import torch
+    pkg = "polynomial_reduction_with_full_domain_decomposition_preconditioner_torch"
+    for name in ("mesh.graph", "mesh.pebble", "ops.face_dssum",
+                 "amg.aggregation", "solvers.unstructured"):
+        importlib.import_module(pkg + "." + name)
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.pebble import pebble_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    scr = lambda o: tg.scramble_mesh(tg.kershaw_mesh((3, 3, 4), o, 0.3,
+                                                     device="cpu"),
+                                     seed=5, permute=False, device="cpu")
+    peb = partial(pebble_mesh, (6, 6, 6), num_pebbles=4, seed=2,
+                  device="cpu")
+    its = []
+    for mk, P, kw in ((scr, 1, {"ptype": torch.bfloat16}), (scr, 2, {}),
+                      (peb, 1, {"inner": "jacobi"})):
+        mesh = mk(3)
+        dom = Domain(partition_mesh(mesh, P), dtype=torch.float32,
+                     device="cpu")
+        pre = composite_dd(dom, mk, poly_reduction=2, fine_mesh=mesh,
+                           **{"inner": "amg", **kw})
+        u = dom.initial_function(4, seed=0)
+        res = dom.solver(method="fgmres", max_iterations=60, precond=pre)(
+            dom.manufacture_rhs(u))
+        assert bool(res.converged), res.residual_history
+        its.append(res.iterations)
+    assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
+                   for k, v in sys.modules.items() if v is not None)
+    print("unstructured iterations", its)
+""")
+
+
+def test_unstructured_path_runs_with_jax_blocked():
+    # scrambled (one and two shards, bf16 composite) and pebble-bed meshes
+    # through the unstructured composite, every new module imported
+    out = subprocess.run([sys.executable, "-c", _UNSTRUCTURED], cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "unstructured iterations" in out.stdout
+
+
 def test_no_jax_or_reference_imports_in_sources():
     pat = re.compile(r"^\s*(import|from)\s+[\w.]*(jax|_tpu)\b", re.M)
     seen = 0

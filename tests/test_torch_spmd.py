@@ -290,9 +290,14 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(ValueError, match="comm"):
         TDomain(tpartition(mesh, 2), dtype=torch.float64, device="cpu",
                 comm=LocalComm(4))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TDomain(tpartition(mesh, 2, structured=False), dtype=torch.float64,
-                device="cpu")
+    # a structured=False partition builds (item 13a); its composite's
+    # fem-amg inner is item 13b
+    domu = TDomain(tpartition(mesh, 2, structured=False),
+                   dtype=torch.float64, device="cpu")
+    mku = partial(tg.box_mesh, (2, 2, 4), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        tsub.composite_dd(domu, mku, poly_reduction=1, inner="fem-amg",
+                          fine_mesh=mesh)
     # the composite at P > 1 (item 10b) builds and converges: two slabs
     # of 4 layers
     mk = partial(tg.box_mesh, (2, 2, 8), device="cpu")

@@ -1,0 +1,83 @@
+"""The port's unstructured composite (solvers/unstructured.py, reached
+through subdomain.composite_dd on a structured=False partition) against
+the JAX package's on one shard, in f64: scrambled Kershaw (4, 4, 4) N=3,
+seed 11, r=2 (tests/test_unstructured.py's smallest configuration): a
+whole outer solve with inner "amg", one composite application with each
+of the other inners and the FCG inner solver, bf16 against the JAX
+package's count, and the guards. Helpers: tests/unstructured_twins.py."""
+
+import numpy as np
+import pytest
+import torch
+
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers import subdomain as jsub
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import subdomain as tsub
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.unstructured import composite_dd_unstructured
+
+from unstructured_twins import Twin, scrambled
+
+
+@pytest.fixture(scope="module")
+def twin():
+    return Twin(scrambled((4, 4, 4), 11), 3, 1)
+
+
+def test_amg_inner_matches_reference(twin):
+    # 5 outer iterations in both; the histories agree to 1.2e-11 at step
+    # 4 and 1.1e-10 at step 5
+    jp, tp = twin.composites(jsub.composite_dd, tsub.composite_dd,
+                             poly_reduction=2, inner="amg")
+    assert [c["shape"][1] for c in tp.extra["classes"]] == [64, 0]
+    twin.check_apply(jp, tp)
+    rj, rt = twin.solve_both(jp, tp)
+    assert rt.iterations == 5
+    twin.check_outer(rj, rt, 5)
+
+
+@pytest.mark.parametrize("inner,inner_solver", [("jacobi", "fgmres"),
+                                                ("none", "fgmres"),
+                                                ("amg", "fcg")])
+def test_inner_variants_match_reference(twin, inner, inner_solver):
+    jp, tp = twin.composites(jsub.composite_dd, tsub.composite_dd,
+                             poly_reduction=2, inner=inner,
+                             inner_solver=inner_solver)
+    twin.check_apply(jp, tp)
+
+
+def test_bf16_ptype_within_two_of_reference(twin):
+    # f32 outer, bf16 composite: the JAX package's CPU contractions round
+    # in bf16, the port's accumulate in f32 (ROADMAP section 3: first
+    # residual 0.1155 against the port's 0.1031, f32 0.0831), so the
+    # count is held within 2 of the JAX package's 4 (both take 4 on the
+    # CPU at FGMRES tolerance 1e-6); tests/test_unstructured.py's bound
+    # on the error
+    mesh = twin.tmk(3)
+    dom = Domain(partition_mesh(mesh, 1), dtype=torch.float32, device="cpu")
+    u = dom.initial_function(4, seed=3)
+    f = dom.manufacture_rhs(u)
+    pre = tsub.composite_dd(dom, twin.tmk, poly_reduction=2, inner="amg",
+                            ptype=torch.bfloat16, fine_mesh=mesh)
+    assert pre.extra["classes"][0]["geom"][0].dtype == torch.bfloat16
+    res = dom.solver(method="fgmres", max_iterations=60, tolerance=1e-6,
+                     precond=pre)(f)
+    assert bool(res.converged) and abs(res.iterations - 4) <= 2
+    err = np.abs(dom.from_device_field(res.u)
+                 - dom.from_device_field(u)).max()
+    assert err < 1e-3
+
+
+def test_guards(twin):
+    td, tmk, tm = twin.td, twin.tmk, twin.tm
+    for kw in ({"inner": "fem-amg"}, {"setup_cache": "x.npz"}):
+        with pytest.raises(NotImplementedError, match="13b"):
+            composite_dd_unstructured(td, tmk, 2, fine_mesh=tm, **kw)
+    with pytest.raises(NotImplementedError, match="13b"):
+        tsub.composite_dd(td, tmk, poly_reduction=2, chain_cache="x.npz",
+                          fine_mesh=tm)
+    for mod, dom, mk, mesh in ((jsub, twin.jd, twin.jmk, twin.jm),
+                               (tsub, td, tmk, tm)):
+        with pytest.raises(ValueError, match="far_coarsen"):
+            mod.composite_dd(dom, mk, poly_reduction=2, far_coarsen=2,
+                             fine_mesh=mesh)
