@@ -35,6 +35,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
   profile  one more solve under torch.profiler: the union of device
            activity over the solve's wall time, and the top kernels
   refine   f64 iterative refinement of that solve to 1e-10
+  host-refine  the same f32 solve as the correction engine of the host
+           f64 oracle (solvers/host_oracle.py: numpy operator and dssum on
+           the same mesh) to 1e-10: cycles, history, max|u-u*|, seconds,
+           beside the refine phase's
   pmg      the same mesh under f32 FCG to 1e-4 preconditioned by
            pmultigrid(poly_reduction=2, smooth_damping=0.5) (orders 7, 5,
            3, 1) and by jacobi: K1 and K2 at n = 8, 6, 4, 2 at full width,
@@ -102,6 +106,23 @@ Phases, each printing JSON lines (any failure exits non-zero):
            P = 4 shards with the far field compressed: the relative
            residual after 200 iterations within 2x of the JAX package's
            (reference/jax_unstructured.py; neither converges)
+  unstructured-femamg  artifacts/femamg_unstructured_scrambled.json's
+           fem-amg run: the unstructured configuration (seed 7, one
+           shard) under f32 FGMRES(20) to 1e-4 with
+           composite_dd(poly_reduction=6, inner="fem-amg", 8 inner
+           steps, ptype f32): 8 iterations +-1, r0 and the first
+           residuals against the record's, host setup seconds by stage
+           and the host's peak resident memory, SpMV times against their
+           byte bounds, a profiled solve (SpMV device ms, K1 launches);
+           the setup written to a setup cache in a temporary directory
+  unstructured-femamg-cache  the same preconditioner from that cache (no
+           mesh built): every tensor bitwise equal to the fresh build's,
+           the count and history against the fresh solve's (cuSPARSE's
+           SpMV does not repeat bitwise on long rows), load seconds
+  unstructured-femamg-spmd  tests/test_unstructured.py:156-187's
+           configuration (scrambled (8, 8, 8) N=2 r=1, seed 11,
+           permute=False, 4 shards, f64) with the far field compressed
+           and not: both converge to 1e-8, counts +-1 of the CPU's (19)
 The kernels phase also holds K1 on the spmd phase's P = 5 stacks at every
 level, (5, 32, 128, 128) n = 8 to (5, 8, 32, 32) n = 2, and K2 on the
 P = 5 and P = 4 stacks of the same levels, against their twins (K2 also
@@ -499,8 +520,10 @@ def check_face_sum_batched(torch, kernels, dev):
     return batched
 
 
-def profile_solve(torch, solve, f, phase="profile", top_n=12):
-    """Device busy share and top kernels of one solve (torch.profiler)."""
+def profile_solve(torch, solve, f, phase="profile", top_n=12, families=None):
+    """Device busy share and top kernels of one solve (torch.profiler);
+    ``families``: {label: name substrings}, the device ms and count of the
+    kernels whose lower-case name holds one of a label's substrings."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -532,12 +555,18 @@ def profile_solve(torch, solve, f, phase="profile", top_n=12):
             cur_b = max(cur_b, b)
     busy += cur_b - cur_a
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
-    return {"phase": phase, "profiled_wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / wall_us,
-            "device_activities": len(spans),
-            "top": [{"name": k, "count": c, "ms": t / 1e3}
-                    for k, (c, t) in top]}
+    out = {"phase": phase, "profiled_wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / wall_us,
+           "device_activities": len(spans),
+           "top": [{"name": k, "count": c, "ms": t / 1e3}
+                   for k, (c, t) in top]}
+    for label, subs in (families or {}).items():
+        hits = [(c, t) for k, (c, t) in by_name.items()
+                if any(x in k.lower() for x in subs)]
+        out[label] = {"count": sum(c for c, _ in hits),
+                      "device_ms": sum(t for _, t in hits) / 1e3}
+    return out
 
 
 def card_vs_cpu(torch, kernels, dev, phase, label, N, make_precond, method,
@@ -2069,6 +2098,287 @@ def run_unstructured_phases(torch, kernels, dev, path_counts, phase_done):
     phase_done("unstructured-spmd")
 
 
+# The port on the CPU in the unstructured-femamg-spmd phase's configuration
+# (tests/test_unstructured.py:156-187: scrambled Kershaw (8, 8, 8) N=2,
+# seed 11, permute=False, r=1, 4 shards, f64 FGMRES to 1e-8), by far field
+# compressed: the JAX package's counts too (reference/jax_unstructured.py
+# femamg; tests/test_torch_unstructured_femamg_spmd.py holds the port's)
+FEMAMG_SPMD_CPU = {False: 19, True: 19}
+# the kernels of one f32 / f64 SpMV (ops/csr.py's sparse_csr route):
+# cuSPARSE's y = beta y pass, its row partition and the product
+SPMV_KERNELS = {"spmv": ("csrmv", "csr_partition", "vector_scalar_multiply")}
+
+
+def _tensor_tree_equal(a, b):
+    """(tensors bitwise equal, paths that differ) over two nests of
+    dicts, lists and objects with tensor fields (CsrMatrix)."""
+    import torch
+    same, differ = 0, []
+
+    def walk(x, y, path):
+        nonlocal same
+        if isinstance(x, torch.Tensor):
+            if (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y)):
+                same += 1
+            else:
+                differ.append(path)
+        elif isinstance(x, dict):
+            for k in x:
+                walk(x[k], y.get(k) if isinstance(y, dict) else None,
+                     f"{path}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, xi in enumerate(x):
+                walk(xi, y[i] if isinstance(y, (list, tuple))
+                     and i < len(y) else None, f"{path}.{i}")
+        elif hasattr(x, "crow"):
+            for k in ("crow", "cols", "vals"):
+                walk(getattr(x, k), getattr(y, k, None), f"{path}.{k}")
+
+    walk(a, b, "")
+    return same, differ
+
+
+def _host_rss_gb():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def run_unstructured_femamg(torch, kernels, dev, phase_done):
+    """artifacts/femamg_unstructured_scrambled.json's fem-amg run on the
+    card: scrambled Kershaw 16^3 N=7 (seed 7, one shard), f32 FGMRES(20)
+    to 1e-4 preconditioned by composite_dd(poly_reduction=6,
+    inner="fem-amg", 8 inner steps, ptype f32); its setup written to a
+    setup cache and rebuilt from it (bitwise equal history); then
+    tests/test_unstructured.py:156-187's configuration over 4 shards in
+    f64, far field compressed and not. Returns the launch counts."""
+    import os
+    import tempfile
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh, scramble_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.unstructured import composite_dd_unstructured
+    total = {}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "artifacts/femamg_unstructured_scrambled.json")
+              ) as fh:
+        rec = json.load(fh)["fem-amg"]
+    mk = lambda o: scramble_mesh(kershaw_mesh((16, 16, 16), o, epsilon=0.3,
+                                              device=dev), seed=7, device=dev)
+    mesh = mk(7)
+    dom = Domain(partition_mesh(mesh, 1), dtype=torch.float32, device=dev)
+    u_star = dom.initial_function(4, seed=0)
+    f = dom.manufacture_rhs(u_star)
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    cache = os.path.join(workdir.name, "femamg_setup.npz")
+
+    def build(builder, fine):
+        t0 = time.time()
+        pre = composite_dd(dom, builder, poly_reduction=6, inner="fem-amg",
+                           num_iterations=8, ptype=torch.float32,
+                           fine_mesh=fine, chain_cache=cache)
+        torch.cuda.synchronize()
+        return pre, time.time() - t0
+
+    def solve_history(solve):
+        res = solve(f)
+        hist = res.residual_history.cpu()
+        return res, hist[torch.isfinite(hist)]
+
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = _host_rss_gb()
+    pre, fresh_s = build(mk, mesh)
+    rss1 = _host_rss_gb()
+    st = pre.extra["setup_seconds"]
+    stages = {"p1_entries": st["fem_p1_entries"],
+              "slave_fold": st["fem_slave_fold"] + st["fem_q_map"],
+              "aggregation_chain": st["fem_aggregation_chain"],
+              "pack": st["fem_pad"] + st["fem_pack"] + st["device"],
+              "composite_rest": sum(st[k] for k in (
+                  "meshes_graph", "regions", "classes_constraints",
+                  "superdomain", "face_plans")),
+              "cache_write": st["save"]}
+    solve = dom.solver(method="fgmres", max_iterations=200, precond=pre)
+    res_w, hist_w = solve_history(solve)          # warm-up, kept
+    best, res, counts = timed_solves(torch, kernels, solve, f, 1)
+    add_counts(total, counts)
+    hist = res.residual_history.cpu()
+    hist = hist[torch.isfinite(hist)]
+    err = (res.u - u_star).abs().max().item()
+    k1 = sum(counts["stiffness_lattice_3d"].values())
+    rel = [abs(float(hist[k]) / rec["residual_history"][k] - 1.0)
+           for k in range(min(4, hist.numel()))]
+    tree = pre.extra["fem"]
+    A0 = tree["levels"][0]["A"]
+    line = {"phase": "unstructured-femamg",
+            "mesh": "scrambled kershaw eps=0.3 16^3 N=7 seed 7",
+            "precond": 'composite_dd(poly_reduction=6, inner="fem-amg", '
+                       'num_iterations=8, ptype=float32)',
+            "method": "fgmres(20) f32 to 1e-4",
+            "points": mesh.num_points,
+            "setup_seconds": fresh_s, "host_setup_seconds_by_stage": stages,
+            "setup_seconds_all_stages": st,
+            "host_peak_rss_gb": rss1, "host_rss_gb_before_setup": rss0,
+            "cache_bytes": os.path.getsize(cache),
+            "levels": [list(lv["A"].shape) for lv in tree["levels"]],
+            "A0_rows": A0.shape[0], "A0_nnz": A0.nnz,
+            "Q_nnz": tree["Q"].nnz,
+            "solve_seconds": best, "iterations": res.iterations,
+            "record_iterations": rec["iterations"],
+            "converged": bool(res.converged),
+            "residuals": [float(x) for x in hist[:6]],
+            "record_residuals": rec["residual_history"][:6],
+            "rel_diff_vs_record": rel, "max_error": err,
+            "record_max_error": rec["max_error"],
+            "bitwise_two_solves": bool(torch.equal(hist, hist_w)),
+            "k1_per_iteration": k1 / max(res.iterations, 1),
+            "launches": counts,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    if not (bool(res.converged) and abs(res.iterations - rec["iterations"]) <= 1
+            and rel[0] <= 1e-5 and max(rel[1:4]) <= 0.05
+            and 0.5 * rec["max_error"] <= err <= 2.0 * rec["max_error"]
+            and plain_calls(counts) == 0 and k1 > 0
+            and bool(torch.isfinite(res.u).all())):
+        raise AssertionError(f"unstructured fem-amg failed its checks: {line}")
+    for mat, label in ((A0, "A0"), (tree["Q"], "Q"), (tree["Qt"], "Qt"),
+                       (tree["prolongs"][0], "P0"),
+                       (tree["restricts"][0], "R0")):
+        emit({"phase": "unstructured-femamg-spmv",
+              **spmv_line(torch, mat, label)})
+    kernels.reset_counts()
+    prof = profile_solve(torch, solve, f, phase="unstructured-femamg-profile",
+                         top_n=16, families=SPMV_KERNELS)
+    prof["launches"] = kernels.counts()
+    add_counts(total, prof["launches"])
+    prof["k1_launches"] = sum(prof["launches"]["stiffness_lattice_3d"]
+                              .values())
+    emit(prof)
+    del solve, res, res_w, tree, A0
+    phase_done("unstructured-femamg")
+
+    # the same preconditioner from the setup cache: no mesh is built. The
+    # card's cuSPARSE CSR SpMV does not repeat bitwise on rows of a few
+    # hundred entries (the aggregation chain's coarse restrictions), so
+    # two solves of one preconditioner part in the last bits (above:
+    # bitwise_two_solves); the cache is held bitwise on every tensor of
+    # the preconditioner, and its solve to the fresh one's count and
+    # history within 1e-3
+    def no_builder(order):
+        raise AssertionError("the cached setup built a mesh")
+
+    fresh = pre
+    pre, load_s = build(no_builder, None)
+    same, differ = _tensor_tree_equal(
+        [fresh.extra[k] for k in ("fem", "classes")],
+        [pre.extra[k] for k in ("fem", "classes")])
+    solve = dom.solver(method="fgmres", max_iterations=200, precond=pre)
+    kernels.reset_counts()
+    res2, hist2 = solve_history(solve)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    add_counts(total, counts)
+    spread = lambda a, b: (((a - b).abs() / b.abs()).max().item()
+                           if a.shape == b.shape else float("inf"))
+    line = {"phase": "unstructured-femamg-cache",
+            "load_seconds": load_s, "fresh_setup_seconds": fresh_s,
+            "load_seconds_by_stage": pre.extra["setup_seconds"],
+            "tensors_bitwise_equal": same, "tensors_differing": differ,
+            "iterations": res2.iterations,
+            "fresh_iterations": len(hist) - 1,
+            "bitwise_history_vs_fresh": bool(torch.equal(hist2, hist)),
+            "max_history_rel_diff_vs_fresh": spread(hist2, hist),
+            "fresh_two_solves_max_rel_diff": spread(hist_w, hist),
+            "launches": counts}
+    emit(line)
+    if not (same > 0 and not differ and len(hist2) == len(hist)
+            and line["max_history_rel_diff_vs_fresh"] <= 1e-3
+            and "load" in pre.extra["setup_seconds"]
+            and plain_calls(counts) == 0):
+        raise AssertionError(f"the cached fem-amg setup differs: {line}")
+    del pre, fresh, solve, res2, dom, mesh, u_star, f
+    workdir.cleanup()
+    phase_done("unstructured-femamg-cache")
+
+    # over 4 shards, f64: the far field compressed and not
+    mk8 = lambda o: scramble_mesh(kershaw_mesh((8, 8, 8), o, epsilon=0.3,
+                                               device=dev),
+                                  seed=11, permute=False, device=dev)
+    mesh8 = mk8(2)
+    dom8 = Domain(partition_mesh(mesh8, 4), dtype=torch.float64, device=dev)
+    u8 = dom8.initial_function(4, seed=3)
+    f8 = dom8.manufacture_rhs(u8)
+    out = {}
+    for fc in (False, True):
+        pre = composite_dd_unstructured(dom8, mk8, poly_reduction=1,
+                                        inner="fem-amg", fine_mesh=mesh8,
+                                        far_compress=fc)
+        kernels.reset_counts()
+        res8 = dom8.solver(method="fgmres", max_iterations=200,
+                           tolerance=1e-8, precond=pre)(f8)
+        torch.cuda.synchronize()
+        c8 = kernels.counts()
+        add_counts(total, c8)
+        out[fc] = {"iterations": res8.iterations,
+                   "cpu_iterations": FEMAMG_SPMD_CPU[fc],
+                   "converged": bool(res8.converged),
+                   "max_error": (res8.u - u8).abs().max().item(),
+                   "superdomain_size": (pre.extra["sup"]["ns"]
+                                        if "sup" in pre.extra else 0),
+                   "k1": sum(c8["stiffness_lattice_3d"].values()),
+                   "plain_calls": plain_calls(c8)}
+    line = {"phase": "unstructured-femamg-spmd",
+            "mesh": "scrambled kershaw eps=0.3 (8,8,8) N=2 seed 11, "
+                    "permute=False, 4 shards, f64",
+            "precond": 'composite_dd_unstructured(poly_reduction=1, '
+                       'inner="fem-amg")',
+            "compressed": out[True], "uncompressed": out[False]}
+    emit(line)
+    if not all(o["converged"] and o["max_error"] < 1e-6 and o["k1"] > 0
+               and o["plain_calls"] == 0
+               and abs(o["iterations"] - o["cpu_iterations"]) <= 1
+               for o in out.values()) or out[True]["superdomain_size"] == 0:
+        raise AssertionError(f"unstructured fem-amg over 4 shards: {line}")
+    phase_done("unstructured-femamg-spmd")
+    return total
+
+
+def run_host_refine(torch, kernels, dom, mesh, solve, u_star, device_ref):
+    """The main path's f32 solve as the correction engine of the host f64
+    oracle (solvers/host_oracle.py) on the same mesh, to 1e-10, beside
+    the device refinement of the same solve (``device_ref``)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.host_oracle import HostOperator, host_refine_solve, owned_to_global
+    t0 = time.time()
+    host = HostOperator(mesh)
+    u_glob = owned_to_global(dom, dom.from_device_field(u_star))
+    f64 = host.apply(u_glob)
+    prep_s = time.time() - t0
+    t0 = time.time()
+    host.apply(u_glob)
+    apply_s = time.time() - t0
+    kernels.reset_counts()
+    t0 = time.time()
+    rr = host_refine_solve(host, dom, solve, f64, tolerance=1e-10)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = kernels.counts()
+    err = float(abs(rr.u - u_glob).max())
+    line = {"phase": "host-refine", "mesh": "kershaw eps=0.3 16^3 N=7",
+            "rel_residual": rr.rel_residual, "cycles": rr.cycles,
+            "inner_iterations": rr.inner_iterations, "history": rr.history,
+            "max_error": err, "seconds": seconds,
+            "host_setup_seconds": prep_s, "host_apply_seconds": apply_s,
+            "device_refine": device_ref, "launches": counts}
+    emit(line)
+    if not (rr.converged and rr.rel_residual <= 1e-10
+            and rr.cycles <= 4 and plain_calls(counts) == 0
+            and sum(counts["stiffness_lattice_3d"].values()) > 0
+            and sum(counts["lattice_face_sum_3d"].values()) > 0):
+        raise AssertionError(f"host refinement failed its checks: {line}")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2222,7 +2532,13 @@ def main():
     if not (rr.rel_residual <= 1e-10 and plain_calls(refine_counts) == 0):
         raise AssertionError(f"refinement failed its checks: {line}")
     phase_done("refine")
+    device_ref = {"rel_residual": rr.rel_residual, "cycles": rr.cycles,
+                  "history": rr.history, "max_error": err64,
+                  "seconds": ref_s}
     del dom64, u64, f64, rr
+    add_counts(path_counts, run_host_refine(torch, kernels, dom, mesh, solve,
+                                            u_star, device_ref))
+    phase_done("host-refine")
 
     pmg_counts, pmg_line = run_pmg(torch, kernels, dom, mk, u_star, f)
     add_counts(path_counts, pmg_counts)
@@ -2241,6 +2557,8 @@ def main():
     run_composite_phases(torch, kernels, dev, mesh, mk, path_counts,
                          phase_done)
     run_unstructured_phases(torch, kernels, dev, path_counts, phase_done)
+    add_counts(path_counts, run_unstructured_femamg(torch, kernels, dev,
+                                                    phase_done))
 
     entries = []
     for (name, dt), t in sorted(timed.items()):

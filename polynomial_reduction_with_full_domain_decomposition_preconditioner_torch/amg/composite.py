@@ -15,9 +15,8 @@ with the reference's operations in the reference's order:
   from the element-vertex grid and the same coarsen-by-2 chain below it;
   ``pad_hier_dofs`` pads ragged shards' hierarchies to one DOF count.
 
-Device packing lives in amg/vcycle.py. ``save_chain_info`` and
-``load_chain_info`` are the port's copy of the JAX package's vertex-chain
-checkpoint (``runtime/checkpoint.py``), the same npz layout.
+Device packing lives in amg/vcycle.py; the vertex chain's checkpoint in
+runtime/checkpoint.py (``save_chain_info`` / ``load_chain_info``).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from .fem import grid_interp_1d, p1_stiffness_grid, sem_element_matrices
 
 __all__ = ["HostHierarchy", "build_composite_hierarchy",
            "coarsen_chain_info", "coarsen_matrix_chain", "pad_hier_dofs",
-           "vertex_q1_hierarchy", "save_chain_info", "load_chain_info"]
+           "vertex_q1_hierarchy"]
 
 
 @dataclass
@@ -484,53 +483,3 @@ def build_composite_hierarchy(groups, mesh_by_order, plane_shape, m_last: int,
                        "galerkin_chain": t3 - t2},
     )
 
-
-def _pack_csr(d: dict, key: str, m: sp.csr_matrix):
-    d[f"{key}.data"] = m.data
-    d[f"{key}.indices"] = m.indices
-    d[f"{key}.indptr"] = m.indptr
-    d[f"{key}.shape"] = np.asarray(m.shape)
-
-
-def _unpack_csr(z, key: str) -> sp.csr_matrix:
-    return sp.csr_matrix(
-        (z[f"{key}.data"], z[f"{key}.indices"], z[f"{key}.indptr"]),
-        shape=tuple(z[f"{key}.shape"]))
-
-
-def save_chain_info(path: str, info: dict):
-    """Vertex-chain checkpoint (coarsen_chain_info output: level CSRs,
-    transfer factors, masks, Chebyshev bounds, dense coarse inverse) as
-    raw npz; ``path`` should end in ``.npz`` (numpy appends it otherwise)."""
-    d = {"num_levels": np.asarray(len(info["mats"])),
-         "lmaxs": np.asarray(info["lmaxs"]),
-         "coarse_inv": info["coarse_inv"]}
-    for l, m in enumerate(info["mats"]):
-        _pack_csr(d, f"A{l}", m.tocsr())
-    for l, m in enumerate(info["prolongs"]):
-        _pack_csr(d, f"P{l}", m.tocsr())
-    for l, s in enumerate(info["shapes"]):
-        d[f"shape{l}"] = np.asarray(s)
-    for l, m in enumerate(info["masks"]):
-        d[f"mask{l}"] = m
-    for l, fs in enumerate(info["factors"]):
-        for k, F in enumerate(fs):
-            d[f"fac{l}.{k}"] = F
-    np.savez_compressed(path, **d)
-
-
-def load_chain_info(path: str) -> dict:
-    with np.load(path) as z:
-        L = int(z["num_levels"])
-        dim = len(z["shape0"])
-        return {
-            "mats": [_unpack_csr(z, f"A{l}") for l in range(L)],
-            "prolongs": [_unpack_csr(z, f"P{l}") for l in range(L - 1)],
-            "shapes": [tuple(int(x) for x in z[f"shape{l}"])
-                       for l in range(L)],
-            "masks": [z[f"mask{l}"] for l in range(L)],
-            "factors": [[z[f"fac{l}.{k}"] for k in range(dim)]
-                        for l in range(L - 1)],
-            "lmaxs": list(z["lmaxs"]),
-            "coarse_inv": z["coarse_inv"],
-        }

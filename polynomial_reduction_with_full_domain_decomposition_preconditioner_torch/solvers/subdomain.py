@@ -46,8 +46,7 @@ import numpy as np
 import torch
 
 from ..amg.composite import (_block_grid_coords, build_composite_hierarchy,
-                             load_chain_info, pad_hier_dofs,
-                             save_chain_info, vertex_q1_hierarchy)
+                             pad_hier_dofs, vertex_q1_hierarchy)
 from ..amg.vcycle import (cheby_smooth, chain_vcycle,
                           composite_preconditioner, pack_chain,
                           pack_hierarchies)
@@ -57,6 +56,7 @@ from ..ops import sem
 from ..ops.interp import axis_contract, lattice_tensor_apply
 from ..ops.kernels import lattice_face_sum_3d
 from ..ops.stencil import stencil_apply
+from ..runtime.checkpoint import load_chain_info, save_chain_info
 from ..utils.gll import diff_matrix, gll_points_weights, interp_matrix
 from .preconditioners import Preconditioner
 from . import krylov
@@ -140,7 +140,7 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     domain: the fine-level Domain: structured (one or more slab shards),
       or an unstructured partition, which goes to
       solvers/unstructured.composite_dd_unstructured (``chain_cache`` is
-      then its ``setup_cache``, ROADMAP item 13b).
+      then its ``setup_cache``).
     mesh_builder(N_c): the same element grid meshed at order N_c.
     poly_reduction: order step of the level hierarchy N, N-r, ..., 1.
     subdomain_overlap: ring thickness in layers (checked against the
@@ -170,7 +170,7 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     fine_mesh: the order-N mesh if already built (must equal
       mesh_builder(N)).
     chain_cache: path of an npz checkpoint of the vertex chain
-      (amg/composite.save_chain_info): loaded if the file exists, else
+      (runtime/checkpoint.save_chain_info): loaded if the file exists, else
       written after the chain is built.
     vertex_iters: study knob of inner="amg": the vertex problem is solved
       by this many fixed PCG iterations preconditioned by the chain

@@ -30,14 +30,18 @@ count: krylov ``batched=True`` with ``shard_dot``.
 
 Inner preconditioners: "amg" (Chebyshev on the composite SEM operator
 plus a smoothed-aggregation V-cycle on the global Q1 vertex matrix),
-"jacobi" and "none". The assembled unstructured FEM hierarchy
-(inner="fem-amg") and the setup checkpoint (``setup_cache``) are ROADMAP
-item 13b.
+"fem-amg" (the composite reassembled as a low-order FEM matrix per shard,
+amg/unstructured_fem.py, and a sparse V-cycle on its aggregation
+hierarchy, the shards' hierarchies block-diagonal in one operator),
+"jacobi" and "none". ``setup_cache`` keeps the whole host setup in one
+npz (runtime/checkpoint.save_setup_payload) and rebuilds from it.
 """
 
 from __future__ import annotations
 
+import os
 import time
+import zlib
 
 import numpy as np
 import scipy.sparse as sp
@@ -46,13 +50,17 @@ import torch
 from ..amg.aggregation import (aggregation_chain, pack_level_chain,
                                q1_vertex_matrix, q1_vertex_matrix_subset,
                                superdomain_basis)
-from ..amg.composite import _mask_fold
-from ..amg.vcycle import _block_diag_csr, cheby_smooth, vcycle_apply
+from ..amg.composite import HostHierarchy, _mask_fold
+from ..amg.unstructured_fem import build_unstructured_fem_shard, pad_fem_shards
+from ..amg.vcycle import (_block_diag_csr, cheby_smooth,
+                          composite_preconditioner, pack_hierarchies,
+                          vcycle_apply)
 from ..mesh import graph as gr
 from ..ops import face_dssum as fd
 from ..ops import interp, sem
 from ..ops.csr import csr_from_scipy, sparse_spmv
 from ..ops.gather_scatter import ordered_scatter_add, ordered_sum_plan
+from ..runtime.checkpoint import load_setup_payload, save_setup_payload
 from ..utils.gll import diff_matrix, gll_points_weights, interp_matrix
 from .preconditioners import Preconditioner
 from . import krylov
@@ -104,65 +112,63 @@ def _blend_matrix(n_o: int, dim: int) -> np.ndarray:
     return B.reshape(2 ** dim, -1).T
 
 
-def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
-                              subdomain_overlap: int = 1,
-                              superdomain_overlap: int = 1,
-                              num_iterations: int = 4,
-                              inner: str = "jacobi",
-                              inner_solver: str = "fgmres",
-                              num_vcycles: int = 1,
-                              cheby_order: int = 2,
-                              ptype=None,
-                              max_coarse: int = 600,
-                              fine_mesh=None,
-                              far_compress="auto",
-                              setup_cache: str | None = None
-                              ) -> Preconditioner:
-    """Composite preconditioner for generic (non-slab) partitions; the
-    contract of solvers/subdomain.composite_dd. ``mesh_builder(o)`` must
-    return the same elements (same ids, same local frames) meshed at order
-    o, as scramble_mesh and pebble_mesh do.
+# the format tag of the payloads setup_cache writes: the port's class
+# layout (lowered face plans, CSR superdomain blocks), which the JAX
+# package's payloads do not share
+_SETUP_FORMAT = "torch-unstructured-composite-1"
 
-    far_compress: "auto" compresses the far field when every shard has
-    one of >= 128 elements; True / False force it (where every shard has
-    a far field). ``extra["setup_seconds"]`` holds the host setup's
-    seconds by stage."""
-    if inner == "fem-amg" or setup_cache is not None:
-        raise NotImplementedError(
-            "the unstructured composite's inner='fem-amg' and setup_cache "
-            "are ROADMAP item 13b")
-    if inner not in ("amg", "jacobi", "none"):
-        raise ValueError(f"unstructured composite inner={inner!r} "
-                         "(use 'amg', 'jacobi' or 'none')")
-    if inner_solver not in ("fgmres", "fcg"):
-        raise ValueError(f"inner_solver={inner_solver!r} "
-                         "(use 'fgmres' or 'fcg')")
-    from .subdomain import _rank_local_solve
 
-    sd = domain.sharded
-    dim = domain.dim
-    N = domain.poly_degree
-    dtype = ptype if ptype is not None else domain.dtype
-    device = domain.device
-    comm = domain.comm
+def _setup_key(sd, orders, subdomain_overlap, superdomain_overlap,
+               far_compress, max_coarse, dtype) -> dict:
+    """What shapes a host setup: a cached one is used only where its key
+    equals this one (the mesh by a checksum of the partition's node ids
+    and coordinates)."""
+    crc = zlib.crc32(np.ascontiguousarray(sd.glo_num).view(np.uint8))
+    crc = zlib.crc32(np.ascontiguousarray(sd.coords).view(np.uint8), crc)
+    return {"orders": [int(o) for o in orders],
+            "shards": int(sd.num_shards),
+            "elems_per_shard": int(sd.elems_per_shard),
+            "elem_offsets": [int(x) for x in sd.elem_offsets],
+            "subdomain_overlap": int(subdomain_overlap),
+            "superdomain_overlap": int(superdomain_overlap),
+            "far_compress": (far_compress if isinstance(far_compress, str)
+                             else bool(far_compress)),
+            "max_coarse": int(max_coarse), "ptype": str(dtype),
+            "mesh_crc32": int(crc)}
+
+
+def _load_setup(path: str, key: dict) -> dict:
+    """The payload at ``path``, which must be the port's and written for
+    ``key``; anything else raises."""
+    payload = load_setup_payload(path)
+    if not isinstance(payload, dict) \
+            or payload.get("format") != _SETUP_FORMAT:
+        raise ValueError(
+            f"setup_cache {path!r} is not a setup of the port's unstructured "
+            "composite (the JAX package's payloads hold its own class "
+            "layout): remove it or name another path")
+    diff = sorted(k for k in set(key) | set(payload["key"])
+                  if key.get(k) != payload["key"].get(k))
+    if diff:
+        raise ValueError(
+            f"setup_cache {path!r} was written for another setup (it differs "
+            f"in {', '.join(diff)}): remove it or name another path")
+    return payload
+
+
+def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
+                far_compress, fine_mesh, inner, max_coarse, lap, seconds):
+    """The composite's host setup (numpy / scipy): regions, class node
+    plans, slave constraints, the compressed far field, the face plans
+    and, for inner="fem-amg", the shards' FEM hierarchies. Returns what
+    ``setup_cache`` keeps (numpy arrays, scipy CSR, python scalars) and
+    the order-1 mesh. ``lap(stage)`` records a stage's seconds in
+    ``seconds``."""
+    dim = sd.dim
+    N = orders[0]
     Pn = sd.num_shards
     E_pad = sd.elems_per_shard
-    seconds = {}
-    clock = [time.perf_counter()]
-
-    def lap(stage):
-        now = time.perf_counter()
-        seconds[stage] = now - clock[0]
-        clock[0] = now
-
-    # level hierarchy N, N-r, ..., 1
-    orders = [N]
-    while orders[-1] > 1:
-        orders.append(max(orders[-1] - poly_reduction, 1))
-    L = len(orders)
-    V = subdomain_overlap
-    C = L                                  # one class per level order
-
+    L = C = len(orders)                    # one class per level order
     order_set = sorted(set(orders) | {1})
     mesh_by_order = {o: (fine_mesh if o == N and fine_mesh is not None
                          else mesh_builder(o)) for o in order_set}
@@ -429,6 +435,120 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
                   tids=np.concatenate(tids), pmask=pmask)
     lap("face_plans")
 
+    fem = None
+    if inner == "fem-amg":
+        # per shard: the composite reassembled as a low-order FEM matrix
+        # (Kuhn P1 on GLL subcells, exact SEM Q1 for order 1, the far
+        # field's superdomain block) and its aggregation hierarchy, from
+        # the class-local constraints; then padded to equal shapes
+        fem_shards = []
+        fem_seconds = {}
+        for p in range(Pn):
+            slv_p = [(per_slv_ids[c][p], per_slv_cols[c][p],
+                      per_slv_wts[c][p]) for c in range(C - 1)]
+            sup_p = None
+            if sup is not None:
+                sup_p = {k: per_sup[p][k] for k in ("A", "iface", "mask")}
+            fem_shards.append(build_unstructured_fem_shard(
+                orders, mesh_by_order, [class_elems[c][p] for c in range(C)],
+                [cls_setups[c][p] for c in range(C)], slv_p, sup_p,
+                max_coarse=max_coarse, seconds=fem_seconds))
+        lap("fem_hierarchy")
+        fem = pad_fem_shards(fem_shards,
+                             ns_pad=sup["ns"] if sup is not None else 0)
+        lap("fem_pad")
+        seconds.update({f"fem_{k}": v for k, v in fem_seconds.items()})
+    regions = [{"own": int(o.size), "rings": [int(r.size) for r in rings],
+                "far": int(f.size), "compressed": bool(compress)}
+               for (o, rings), f in zip(region_sets, far_sets)]
+    return {"classes": classes, "slaves": slaves, "sup": sup, "nv": nv,
+            "regions": regions, "fem": fem}, mesh1
+
+
+def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
+                              subdomain_overlap: int = 1,
+                              superdomain_overlap: int = 1,
+                              num_iterations: int = 4,
+                              inner: str = "jacobi",
+                              inner_solver: str = "fgmres",
+                              num_vcycles: int = 1,
+                              cheby_order: int = 2,
+                              ptype=None,
+                              max_coarse: int = 600,
+                              fine_mesh=None,
+                              far_compress="auto",
+                              setup_cache: str | None = None
+                              ) -> Preconditioner:
+    """Composite preconditioner for generic (non-slab) partitions; the
+    contract of solvers/subdomain.composite_dd. ``mesh_builder(o)`` must
+    return the same elements (same ids, same local frames) meshed at order
+    o, as scramble_mesh and pebble_mesh do.
+
+    far_compress: "auto" compresses the far field when every shard has
+    one of >= 128 elements; True / False force it (where every shard has
+    a far field). ``extra["setup_seconds"]`` holds the host setup's
+    seconds by stage.
+
+    setup_cache: npz path of the whole host setup (regions, node plans,
+    constraints, superdomain blocks, face plans, the fem-amg hierarchies,
+    the vertex chain and Chebyshev bounds of inner="amg"). An existing
+    file is loaded in place of the setup; it must be the port's and have
+    been written for the same mesh, partition, orders, overlaps,
+    far_compress, max_coarse and ptype, else this raises. A file without
+    the fem hierarchies counts as missing for inner="fem-amg". After a
+    fresh setup the file is written."""
+    if inner not in ("amg", "fem-amg", "jacobi", "none"):
+        raise ValueError(f"unstructured composite inner={inner!r} "
+                         "(use 'amg', 'fem-amg', 'jacobi' or 'none')")
+    if inner_solver not in ("fgmres", "fcg"):
+        raise ValueError(f"inner_solver={inner_solver!r} "
+                         "(use 'fgmres' or 'fcg')")
+    from .subdomain import _rank_local_solve
+
+    sd = domain.sharded
+    dim = domain.dim
+    N = domain.poly_degree
+    dtype = ptype if ptype is not None else domain.dtype
+    device = domain.device
+    comm = domain.comm
+    Pn = sd.num_shards
+    E_pad = sd.elems_per_shard
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(stage):
+        now = time.perf_counter()
+        seconds[stage] = now - clock[0]
+        clock[0] = now
+
+    # level hierarchy N, N-r, ..., 1
+    orders = [N]
+    while orders[-1] > 1:
+        orders.append(max(orders[-1] - poly_reduction, 1))
+    L = len(orders)
+    C = L                                  # one class per level order
+
+    host = mesh1 = None
+    key = None
+    if setup_cache is not None:
+        key = _setup_key(sd, orders, subdomain_overlap, superdomain_overlap,
+                         far_compress, max_coarse, dtype)
+        if os.path.exists(setup_cache):
+            host = _load_setup(setup_cache, key)
+            if inner == "fem-amg" and host["fem"] is None:
+                # written for another inner: the fem hierarchies need the
+                # class-local constraints, which only a fresh setup has
+                host = None
+            lap("load")
+    fresh = host is None
+    if fresh:
+        host, mesh1 = _host_setup(sd, mesh_builder, orders, subdomain_overlap,
+                                  superdomain_overlap, far_compress,
+                                  fine_mesh, inner, max_coarse, lap, seconds)
+    classes, slaves, sup, nv = (host["classes"], host["slaves"],
+                                host["sup"], host["nv"])
+    cls_NT = [cl["NT"] for cl in classes]
+
     # ---- device tensors: class c's fields are (P, E_c, npe_c) stacks ----
     put = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                     device=device).to(dtype)
@@ -591,9 +711,13 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
     if inner == "amg":
         # smoothed-aggregation hierarchy on the global Q1 vertex matrix,
         # cycled per shard (a (P, nv) stack)
-        A_v, vmask = q1_vertex_matrix(mesh1)
-        agg_info = aggregation_chain(A_v, vmask, max_coarse=max_coarse)
-        lap("aggregation")
+        if host.get("agg_info") is not None:
+            agg_info, vmask = host["agg_info"], host["agg_vmask"]
+        else:
+            A_v, vmask = q1_vertex_matrix(
+                mesh1 if mesh1 is not None else mesh_builder(1))
+            agg_info = aggregation_chain(A_v, vmask, max_coarse=max_coarse)
+            lap("aggregation")
         chain = pack_level_chain(agg_info, dtype=dtype, device=device,
                                  shards=Pn)
         vmask_t = put(vmask)
@@ -603,24 +727,30 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             Pn * (nv + 1), device) for cl in classes]
         comp_invd = comp_inv_diag()
 
-        # Chebyshev bound per shard: lambda_max(D^-1 S A) of its composite
-        # by 20 power-iteration steps with rank-local dots, x 1.1
-        x, off = [], 0
-        for m in comp_mask:
-            sz = m[0].numel()
-            base = (torch.arange(sz, dtype=torch.float64, device=device)
-                    .to(dtype) + off) * 0.7311
-            x.append(torch.sin(base).reshape(m.shape[1:]) * m)
-            off += sz
-        lam = None
-        for _ in range(20):
-            y = [iv * ax for iv, ax in zip(comp_invd, A_mf(x))]
-            num = krylov.shard_dot(y, y)
-            den = torch.clamp(krylov.shard_dot(x, x), min=1e-30)
-            lam = torch.sqrt(num / den)
-            scale = 1.0 / torch.clamp(torch.sqrt(num), min=1e-30)
-            x = [krylov._bc(scale, yl) * yl for yl in y]
-        lmax0 = (lam * 1.1).reshape(Pn, 1, 1)
+        if host.get("lmax0") is not None:
+            # kept in f64, which holds every ptype's value exactly
+            lmax0 = torch.as_tensor(np.asarray(host["lmax0"], np.float64),
+                                    device=device).to(dtype).reshape(Pn, 1, 1)
+        else:
+            # Chebyshev bound per shard: lambda_max(D^-1 S A) of its
+            # composite by 20 power-iteration steps with rank-local dots,
+            # x 1.1
+            x, off = [], 0
+            for m in comp_mask:
+                sz = m[0].numel()
+                base = (torch.arange(sz, dtype=torch.float64, device=device)
+                        .to(dtype) + off) * 0.7311
+                x.append(torch.sin(base).reshape(m.shape[1:]) * m)
+                off += sz
+            lam = None
+            for _ in range(20):
+                y = [iv * ax for iv, ax in zip(comp_invd, A_mf(x))]
+                num = krylov.shard_dot(y, y)
+                den = torch.clamp(krylov.shard_dot(x, x), min=1e-30)
+                lam = torch.sqrt(num / den)
+                scale = 1.0 / torch.clamp(torch.sqrt(num), min=1e-30)
+                x = [krylov._bc(scale, yl) * yl for yl in y]
+            lmax0 = (lam * 1.1).reshape(Pn, 1, 1)
         amg = {"chain": chain, "vmask": vmask_t, "B": B, "lmax0": lmax0}
 
         def restrict_to_vertex(parts):
@@ -655,6 +785,28 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
                 x = cheby_smooth(A_mf, comp_invd, lmax0, fc, x, cheby_order)
             return x
         lap("lmax")
+    elif inner == "fem-amg":
+        # the shards' FEM hierarchies as block-diagonal operators in ptype
+        # (amg/vcycle.pack_hierarchies): Q^T to the FEM DOFs, the mask,
+        # num_vcycles V-cycles, the mask, Q back to the composite points
+        fem_tree = pack_hierarchies(
+            [HostHierarchy(mats=s["chain"]["mats"],
+                           prolongs=s["chain"]["prolongs"],
+                           lmaxs=s["chain"]["lmaxs"],
+                           coarse_inv=s["chain"]["coarse_inv"],
+                           Q=s["Q"], dof_mask=s["dof_mask"])
+             for s in host["fem"]], dtype, device=device)
+        fem_apply = composite_preconditioner(
+            fem_tree, cheby_order=cheby_order, num_cycles=num_vcycles)
+        lap("fem_pack")
+
+        def inner_precond(rr):
+            # one flat composite vector a shard: the classes in order,
+            # then the superdomain part (the rows of Q)
+            flat = torch.cat([p.reshape(Pn, -1) for p in rr], 1)
+            z = fem_apply(flat if Pn > 1 else flat[0]).reshape(Pn, -1)
+            parts = torch.split(z, [p[0].numel() for p in rr], dim=1)
+            return [q.reshape(p.shape) for q, p in zip(parts, rr)]
     elif inner == "jacobi":
         comp_invd = comp_inv_diag()
 
@@ -665,15 +817,23 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
         def inner_precond(rr):
             return comp_dssum(rr, apply_mask=True)
 
+    if setup_cache is not None and fresh:
+        saved = dict(host, format=_SETUP_FORMAT, key=key, agg_info=None,
+                     agg_vmask=None, lmax0=None)
+        if amg is not None:
+            saved.update(agg_info=agg_info, agg_vmask=vmask,
+                         lmax0=lmax0.reshape(-1).double().cpu().numpy())
+        save_setup_payload(setup_cache, saved)
+        lap("save")
+
     extra = {"classes": cls_x, "setup_seconds": seconds,
-             "regions": [{"own": int(o.size),
-                          "rings": [int(r.size) for r in rings],
-                          "far": int(f.size), "compressed": compress}
-                         for (o, rings), f in zip(region_sets, far_sets)]}
+             "regions": host["regions"]}
     if sup_x is not None:
         extra["sup"] = sup_x
     if amg is not None:
         extra["amg"] = amg
+    if inner == "fem-amg":
+        extra["fem"] = fem_tree
 
     def build(arrays, extra_, ops):
         _, dssum_f, _, _ = ops

@@ -17,6 +17,14 @@ an f64 run is f64) and prints one JSON line per run:
       twin on the card.
   python reference/jax_unstructured.py regions SHAPE P
       the same mesh's per-shard region sizes (own, rings, far) only.
+  python reference/jax_unstructured.py femamg
+      inner="fem-amg" on tests/test_unstructured.py's configurations:
+      scrambled Kershaw eps=0.3 (4, 4, 4) N=3, scramble seed 11, r=2, at
+      P = 1 and 4 in f64 (FGMRES to 1e-8) and at P = 1 in f32 with a
+      bf16 ptype (to 1e-6), u* = initial_function(4, seed=3); then
+      (8, 8, 8) N=2 r=1, permute=False, over 4 shards in f64 with the far
+      field compressed and without. The counts the port's CPU tests
+      (tests/test_torch_unstructured_femamg.py) are held to.
 
 Each line carries its wall seconds and the process's peak RSS.
 """
@@ -99,6 +107,45 @@ def spmd(jax, shape, Pn, maxit, ptype):
           setup_seconds=setup_s, seconds=time.time() - t0)
 
 
+def femamg(jax):
+    import numpy as np
+    import jax.numpy as jnp
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh import generator as mg
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers.unstructured import composite_dd_unstructured
+
+    def run(shape, N, r, Pn, dtype, ptype, tol, permute=True, **kw):
+        t0 = time.time()
+        mk = lambda o: mg.scramble_mesh(mg.kershaw_mesh(shape, o, 0.3),
+                                        seed=11, permute=permute)
+        mesh = mk(N)
+        dm = jax.make_mesh((Pn,), ("shard",)) if Pn > 1 else None
+        dom = Domain(partition_mesh(mesh, Pn), dtype=dtype, device_mesh=dm)
+        u_star = dom.initial_function(4, seed=3)
+        pre = composite_dd_unstructured(dom, mk, poly_reduction=r,
+                                        inner="fem-amg", ptype=ptype,
+                                        fine_mesh=mesh, **kw)
+        res = dom.solver(method="fgmres", max_iterations=200,
+                         tolerance=tol, precond=pre)(
+            dom.manufacture_rhs(u_star))
+        hist = np.asarray(res.residual_history)
+        err = float(np.abs(dom.from_device_field(res.u)
+                           - dom.from_device_field(u_star)).max())
+        _emit(what="femamg", shape=list(shape), N=N, r=r, shards=Pn,
+              dtype=str(np.dtype(dtype)), ptype=str(ptype), options=kw,
+              iterations=int(res.iterations), converged=bool(res.converged),
+              history=[float(x) for x in hist[np.isfinite(hist)]],
+              max_error=err, seconds=time.time() - t0)
+
+    for Pn in (1, 4):
+        run((4, 4, 4), 3, 2, Pn, jnp.float64, None, 1e-8)
+    run((4, 4, 4), 3, 2, 1, jnp.float32, jnp.bfloat16, 1e-6)
+    for fc in (False, True):
+        run((8, 8, 8), 2, 1, 4, jnp.float64, None, 1e-8, permute=False,
+            far_compress=fc)
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "regions"
     shape = tuple(int(x) for x in sys.argv[2].split(",")) \
@@ -106,6 +153,8 @@ if __name__ == "__main__":
     Pn = int(sys.argv[3]) if len(sys.argv) > 3 else 4
     if what == "regions":
         regions(shape, Pn)
+    elif what == "femamg":
+        femamg(_jax())
     elif what == "spmd":
         spmd(_jax(), shape, Pn,
              int(sys.argv[4]) if len(sys.argv) > 4 else 200,

@@ -7,6 +7,7 @@ FGMRES) that several files run on their own configurations."""
 from functools import partial
 
 import numpy as np
+import pytest
 import torch
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,19 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import subdomain as tsub
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain as TDomain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for the test module that imports this
+    fixture, put back after it: the port's CPU tensors in these tests are
+    small, and a pool of a thread a core made them several times slower
+    and took the cores from the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # the ragged box of tests/test_ragged.py: 8 layers, isotropic elements
 BOX = partial(jg.box_mesh, (2, 2, 8), extent=(1.0, 1.0, 4.0))

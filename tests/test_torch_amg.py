@@ -32,6 +32,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.so
     _build_group_specs as t_group_specs)
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils import native
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

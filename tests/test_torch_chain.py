@@ -23,6 +23,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import interp as tinterp
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import stencil as tstencil
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _close(a, b, tol=1e-12):
     a, b = np.asarray(a), np.asarray(b)

@@ -16,6 +16,8 @@ from jax.sharding import PartitionSpec as P
 
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.comm import LocalComm, chain_pairs
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _jax_collective(fn, x, nshards):
     mesh = jax.make_mesh((nshards,), ("shard",))

@@ -23,6 +23,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.so
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain as TDomain
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.refine import refine_solve
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _port_mesh(m):
     return tg.GlobalMesh.from_numpy(

@@ -9,6 +9,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh
 
 from composite_twins import (check_outer, check_probe, composites, pair,
                              solve_both)
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_fcg_inner_p8_matches_reference():

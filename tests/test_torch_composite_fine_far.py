@@ -6,6 +6,7 @@ each side, a 10-layer order-1 far field). Helpers: tests/
 composite_twins.py."""
 
 from composite_twins import check_kershaw2216_p8
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_composite_p8_fine_far_matches_reference():

@@ -8,6 +8,7 @@ import pytest
 
 from composite_twins import (BOX, check_outer, check_probe, check_tree_rhs,
                              composites, pair, solve_both)
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("inner", ["jacobi", "none"])

@@ -9,6 +9,7 @@ import numpy as np
 
 from composite_twins import (BOX, check_outer, check_probe, check_tree_rhs,
                              composites, pair, solve_both)
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_ragged_composite_matches_reference():

@@ -28,6 +28,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.so
 from composite_twins import (KERSHAW2216, check_kershaw2216_p8, check_outer,
                              check_probe, check_tree_rhs, composites, pair,
                              port_mesh, solve_both)
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_composite_p8_matches_reference():

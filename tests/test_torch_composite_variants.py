@@ -16,11 +16,13 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.runt
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers import subdomain as jsub
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers.domain import Domain as JDomain
 
-from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.amg import composite as tcomp
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime import checkpoint as tckpt
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh as tpartition
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import subdomain as tsub
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain as TDomain
+
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPE, N, R = (4, 4, 4), 3, 2
 
@@ -101,7 +103,7 @@ def test_chain_cache_round_trip(problem, tmp_path):
     path = str(tmp_path / "chain.npz")
     first = tsub.composite_dd(td, tb, poly_reduction=R, fine_mesh=tm,
                               chain_cache=path)
-    info = tcomp.load_chain_info(path)
+    info = tckpt.load_chain_info(path)
     # the port's checkpoint is the JAX package's format: its loader reads
     # the same chain, and the port loads what the JAX package saves
     jinfo = jckpt.load_chain_info(path)

@@ -13,6 +13,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.ops 
 
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import csr
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 TDT = {"float64": torch.float64, "float32": torch.float32,
        "bfloat16": torch.bfloat16}
 JDT = {"float64": jnp.float64, "float32": jnp.float32,

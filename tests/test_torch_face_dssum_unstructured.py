@@ -29,6 +29,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.op
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain as TDomain, shard_face_plans
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.gll import diff_matrix, interp_matrix
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 MESHES = {
     # tests/test_face_dssum.py's meshes
     "scrambled": (lambda: jg.scramble_mesh(jg.kershaw_mesh((3, 3, 4), 3, 0.3),

@@ -14,6 +14,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.ops 
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import gather_scatter as tgs
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture
 def interpret_pallas(monkeypatch):

@@ -15,6 +15,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh as tpartition
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils import gll as tgll
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 _MESH_FIELDS = ("coords", "geom", "dirichlet_mask", "node_degree", "mass",
                 "glo_num")
 

@@ -16,6 +16,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.am
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import graph as tgr
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _pair(shape, N, seed, permute=True):
     jm = jg.scramble_mesh(jg.kershaw_mesh(shape, N, 0.3), seed=seed,

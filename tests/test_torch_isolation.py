@@ -17,6 +17,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 _PKG_DIR = os.path.dirname(port.__file__)
 _REPO = os.path.dirname(_PKG_DIR)
 
@@ -111,7 +113,9 @@ _UNSTRUCTURED = textwrap.dedent("""
     import torch
     pkg = "polynomial_reduction_with_full_domain_decomposition_preconditioner_torch"
     for name in ("mesh.graph", "mesh.pebble", "ops.face_dssum",
-                 "amg.aggregation", "solvers.unstructured"):
+                 "amg.aggregation", "solvers.unstructured",
+                 "amg.unstructured_fem", "runtime.checkpoint",
+                 "solvers.host_oracle"):
         importlib.import_module(pkg + "." + name)
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.pebble import pebble_mesh
@@ -136,6 +140,29 @@ _UNSTRUCTURED = textwrap.dedent("""
             dom.manufacture_rhs(u))
         assert bool(res.converged), res.residual_history
         its.append(res.iterations)
+    # inner="fem-amg" through a setup cache, fresh and loaded, and the
+    # host f64 oracle refining the f32 solve
+    import os, tempfile
+    import numpy as np
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.host_oracle import HostOperator, host_refine_solve
+    mesh = scr(3)
+    dom = Domain(partition_mesh(mesh, 1), dtype=torch.float32, device="cpu")
+    u = dom.initial_function(4, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        cache = os.path.join(d, "setup.npz")
+        for mk in (scr, None):
+            pre = composite_dd(dom, mk, poly_reduction=2, inner="fem-amg",
+                               fine_mesh=mesh, chain_cache=cache)
+            res = dom.solver(method="fgmres", max_iterations=60,
+                             precond=pre)(dom.manufacture_rhs(u))
+            assert bool(res.converged), res.residual_history
+            its.append(res.iterations)
+    host = HostOperator(mesh)
+    ustar = dom.from_device_field(u).astype(np.float64).reshape(-1)
+    ref = host_refine_solve(host, dom, dom.solver(method="fgmres",
+                            max_iterations=60, precond=pre),
+                            host.apply(ustar), tolerance=1e-9)
+    assert ref.converged, ref.history
     assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
                    for k, v in sys.modules.items() if v is not None)
     print("unstructured iterations", its)
@@ -144,7 +171,8 @@ _UNSTRUCTURED = textwrap.dedent("""
 
 def test_unstructured_path_runs_with_jax_blocked():
     # scrambled (one and two shards, bf16 composite) and pebble-bed meshes
-    # through the unstructured composite, every new module imported
+    # through the unstructured composite, inner="fem-amg" through its setup
+    # cache and the host f64 oracle, every new module imported
     out = subprocess.run([sys.executable, "-c", _UNSTRUCTURED], cwd=_REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr

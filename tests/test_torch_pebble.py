@@ -14,6 +14,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.unstructured import composite_dd_unstructured as tcomposite
 
 from unstructured_twins import Twin, pebbles
+from unstructured_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("shape,num,seed,frac", [

@@ -290,14 +290,17 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(ValueError, match="comm"):
         TDomain(tpartition(mesh, 2), dtype=torch.float64, device="cpu",
                 comm=LocalComm(4))
-    # a structured=False partition builds (item 13a); its composite's
-    # fem-amg inner is item 13b
+    # a structured=False partition builds (item 13a), and so does its
+    # composite's fem-amg inner (item 13b)
     domu = TDomain(tpartition(mesh, 2, structured=False),
                    dtype=torch.float64, device="cpu")
     mku = partial(tg.box_mesh, (2, 2, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tsub.composite_dd(domu, mku, poly_reduction=1, inner="fem-amg",
-                          fine_mesh=mesh)
+    preu = tsub.composite_dd(domu, mku, poly_reduction=1, inner="fem-amg",
+                             fine_mesh=mesh)
+    resu = domu.solver(method="fgmres", max_iterations=60, tolerance=1e-8,
+                       precond=preu)(
+        domu.manufacture_rhs(domu.initial_function(4, seed=0)))
+    assert bool(resu.converged), resu.residual_history
     # the composite at P > 1 (item 10b) builds and converges: two slabs
     # of 4 layers
     mk = partial(tg.box_mesh, (2, 2, 8), device="cpu")

@@ -14,6 +14,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.util
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import sem as tsem
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _problem(n, shape, seed=0):
     rng = np.random.default_rng(seed)

@@ -33,6 +33,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.ops.
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import stiffness_precision as study
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 _ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "artifacts", "bench_stiffness_precision.py")
 N = 8

@@ -17,6 +17,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.so
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.unstructured import composite_dd_unstructured
 
 from unstructured_twins import Twin, scrambled
+from unstructured_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -69,13 +70,15 @@ def test_bf16_ptype_within_two_of_reference(twin):
 
 
 def test_guards(twin):
+    # inner="fem-amg" and setup_cache are ported (item 13b: tests/
+    # test_torch_unstructured_femamg*.py, _setup_cache.py); an unknown
+    # inner or inner solver is refused before any setup
     td, tmk, tm = twin.td, twin.tmk, twin.tm
-    for kw in ({"inner": "fem-amg"}, {"setup_cache": "x.npz"}):
-        with pytest.raises(NotImplementedError, match="13b"):
-            composite_dd_unstructured(td, tmk, 2, fine_mesh=tm, **kw)
-    with pytest.raises(NotImplementedError, match="13b"):
-        tsub.composite_dd(td, tmk, poly_reduction=2, chain_cache="x.npz",
-                          fine_mesh=tm)
+    with pytest.raises(ValueError, match="'amg', 'fem-amg', 'jacobi'"):
+        composite_dd_unstructured(td, tmk, 2, inner="ilu", fine_mesh=tm)
+    with pytest.raises(ValueError, match="inner_solver"):
+        composite_dd_unstructured(td, tmk, 2, inner_solver="cg",
+                                  fine_mesh=tm)
     for mod, dom, mk, mesh in ((jsub, twin.jd, twin.jmk, twin.jm),
                                (tsub, td, tmk, tm)):
         with pytest.raises(ValueError, match="far_coarsen"):

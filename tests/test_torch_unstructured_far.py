@@ -12,6 +12,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solv
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.unstructured import composite_dd_unstructured as tcomposite
 
 from unstructured_twins import Twin, scrambled
+from unstructured_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

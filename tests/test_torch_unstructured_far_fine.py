@@ -17,6 +17,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.so
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.unstructured import composite_dd_unstructured
 
 from unstructured_twins import Twin, scrambled
+from unstructured_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _far_in_order1_class(pre):

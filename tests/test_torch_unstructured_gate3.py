@@ -14,6 +14,8 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
 
+from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+
 
 def test_gate3_dry_run():
     shape = (2, 2, 17)

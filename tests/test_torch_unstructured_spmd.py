@@ -10,6 +10,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solv
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import subdomain as tsub
 
 from unstructured_twins import Twin, scrambled
+from unstructured_twins import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -5,6 +5,7 @@ whole outer solves. Imported by name (tests/ is on sys.path under
 pytest)."""
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 import jax
 import jax.numpy as jnp
@@ -12,12 +13,16 @@ import jax.numpy as jnp
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh import generator as jg
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh.partition import partition_mesh as jpartition
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh.pebble import pebble_mesh as jpebble
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.runtime.checkpoint import load_setup_payload as jload
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers.domain import Domain as JDomain
 
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh as tpartition
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.pebble import pebble_mesh as tpebble
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.checkpoint import load_setup_payload as tload
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain as TDomain
+
+from composite_twins import one_torch_thread  # noqa: F401 (autouse, re-exported)
 
 
 def scrambled(shape, seed, permute=True):
@@ -87,3 +92,31 @@ class Twin:
         err = np.abs(self.td.from_device_field(rt.u)
                      - self.td.from_device_field(self.tu)).max()
         assert err < max_err
+
+
+def _rel(a, b):
+    """max |a - b| over max |a| (dense or sparse)."""
+    d = abs(a - b).max()
+    m = abs(a).max()
+    return float(d) / float(m) if m else float(d)
+
+
+def check_fem_hierarchies(jpath, tpath, tol=1e-14):
+    """The shards' padded FEM hierarchies of both packages' setup
+    payloads, level for level, to ``tol`` of max; returns the port's."""
+    jf, tf = jload(jpath)["fem"], tload(tpath)["fem"]
+    assert len(jf) == len(tf)
+    for js, ts in zip(jf, tf):
+        jc, tc = js["chain"], ts["chain"]
+        assert len(jc["mats"]) == len(tc["mats"])
+        for key in ("mats", "prolongs"):
+            for a, b in zip(jc[key], tc[key]):
+                assert sp.isspmatrix_csr(b) and a.shape == b.shape
+                assert _rel(a, b) <= tol, key
+        np.testing.assert_allclose(tc["lmaxs"], jc["lmaxs"], rtol=tol)
+        assert _rel(jc["coarse_inv"], tc["coarse_inv"]) <= tol
+        assert js["Q"].shape == ts["Q"].shape
+        assert _rel(js["Q"], ts["Q"]) <= tol
+        assert np.array_equal(js["dof_mask"], ts["dof_mask"])
+        assert (js["ndof"], js["ns"]) == (ts["ndof"], ts["ns"])
+    return tf
