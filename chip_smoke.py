@@ -7,7 +7,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
   env      torch/CUDA versions, the card, and nvidia-smi's name and power
            limit (also printed raw on a line of its own)
   build    nvcc build of csrc/*.cu for sm_90a (seconds; per source the
-           most registers a kernel uses and the bytes it spills)
+           most registers a kernel uses and the bytes it spills; the SpMV
+           kernel's SASS by cuobjdump: float multiplies and adds, no FMA)
   kernels  every kernel against its plain PyTorch twin on the card with
            the stated tolerances: K1 and K2 in bf16, f32 and f64 at the
            main path's lattice, at odd shapes (odd n with row pitches no
@@ -50,8 +51,14 @@ Phases, each printing JSON lines (any failure exits non-zero):
            sparse V-cycle (the reference's production fem-amg run,
            artifacts/femamg_production_16cubed.json: 26 iterations, r0
            270.364). Setup seconds by stage, A0's size, the SpMV route
-           per dtype and A0's SpMV time against its byte bound, launches,
-           one solve under torch.profiler. Then the one-shard half of the
+           per dtype, launches; the fixed-order SpMV kernel
+           (csrc/csr_spmv.cu) on A0 (f32, and its values in f64), Q, Qt,
+           P0 and R0 timed against its bound, its plain twin and torch.mv
+           on a sparse_csr tensor of the same arrays (cuSPARSE, the
+           library call); then "spmv-femamg": the kernel bitwise against
+           its twin on every level matrix and over 200 interleaved calls;
+           one solve under torch.profiler (no cuSPARSE kernel may run).
+           Then the one-shard half of the
            dry-run's gate 4 (__graft_entry__.py): Kershaw (2, 2, 17) N=3,
            the bf16 hierarchy under FGMRES with a bf16 Z basis to 1e-6
   spmd-ops P slab shards in one process (runtime/comm.LocalComm), f64, on
@@ -78,7 +85,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
            and 8: the gates' windows around the JAX package's counts
   composite-spmd  the main path's configuration over P = 8 (G = 8, far
            field z-merged) and P = 5 (ragged, G = 6), ptype f32 and bf16:
-           best of 3, K1 / K2 launches per composite apply (= G), the
+           the 20-step solves best of 3 and the P = 5 f32 solve once,
+           K1 / K2 launches per composite apply (= G), the
            first residuals and the P = 5 count (+-1) against the JAX
            package's, bf16 after 20 steps and P = 8 f32 after 200 against
            the JAX package's relative residual (within 2x), a profiled
@@ -92,7 +100,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
            composite (poly_reduction=6, inner="amg"), ptype f32 and bf16,
            against artifacts/unstructured_production_16cubed*.json (9 and
            11 iterations, r0 268.7132): setup seconds by stage, best of
-           3, peak memory, a profiled solve; the element operator (K1 on
+           3, peak memory, a profiled solve; "spmv-unstructured": the
+           aggregation chain's SpMV kernel bitwise against its twin and
+           over 200 interleaved calls; "unstructured-repeat": a second
+           solve of the f32 preconditioner and a solve of one built
+           afresh, each history bitwise equal; the element operator (K1 on
            the (E n, n, n) element view) timed against its torch
            contraction; the face-block dssum in f32 and f64 twice and
            against the generic scatter dssum on the CPU, bitwise
@@ -113,16 +125,32 @@ Phases, each printing JSON lines (any failure exits non-zero):
            steps, ptype f32): 8 iterations +-1, r0 and the first
            residuals against the record's, host setup seconds by stage
            and the host's peak resident memory, SpMV times against their
-           byte bounds, a profiled solve (SpMV device ms, K1 launches);
-           the setup written to a setup cache in a temporary directory
+           bounds and cuSPARSE, the kernel bitwise on every level matrix
+           ("spmv-unstructured-femamg"), a profiled solve (SpMV device ms,
+           K1 launches); two solves' histories bitwise equal; the setup
+           written to a setup cache in a temporary directory
   unstructured-femamg-cache  the same preconditioner from that cache (no
            mesh built): every tensor bitwise equal to the fresh build's,
-           the count and history against the fresh solve's (cuSPARSE's
-           SpMV does not repeat bitwise on long rows), load seconds
+           and the history bitwise equal to the fresh solve's, load
+           seconds
   unstructured-femamg-spmd  tests/test_unstructured.py:156-187's
            configuration (scrambled (8, 8, 8) N=2 r=1, seed 11,
            permute=False, 4 shards, f64) with the far field compressed
            and not: both converge to 1e-8, counts +-1 of the CPU's (19)
+  multiprocess  2 processes on the card (runtime/launch.py spawned twice,
+           gloo, each owning 2 of P = 4 shards, runtime/comm.ProcessComm)
+           against the same runs with all 4 shards in this process
+           (LocalComm): the pmg configuration over P = 4 (29 iterations
+           in both, residuals within 1e-5 relative, max|u-u*| within
+           1e-4, K1 / K2 launches an iteration and the boundary-first
+           split's extra boundary-layer launches), 20 steps of the main
+           path's composite (f32, inner "amg"; each residual within 1e-4
+           relative), and unstructured-femamg-spmd's configuration
+           (f64) without and with the per-process setup cache (counts
+           equal, histories within 1e-12 of r0, the cache hit in both
+           processes); per process the solve seconds, gloo's host staging
+           copies and bytes and the slab exchange timed alone. NCCL needs
+           a card a process and is not run here
 The kernels phase also holds K1 on the spmd phase's P = 5 stacks at every
 level, (5, 32, 128, 128) n = 8 to (5, 8, 32, 32) n = 2, and K2 on the
 P = 5 and P = 4 stacks of the same levels, against their twins (K2 also
@@ -131,7 +159,10 @@ one-lattice launch of the same bytes. After every phase from small on,
 K1 and K2 are held to their twins at each launch signature (shape,
 order, dtypes) that the phase's paths produced and no earlier check
 covered (K2 on a stack also against one launch per entry): every group
-stack of every composite, in the dtype it ran.
+stack of every composite, in the dtype it ran; the SpMV kernel at every
+(dtype, rows, columns, entries, lanes, index width) it ran, bitwise on a
+random matrix of that signature (the multiprocess workers' signatures
+included).
 Then one {"kernels": [...]} line (each kernel variant: its launches on
 the driven paths, error, warm and cold time, plain time, bound and the
 share of the bound it reaches: this run's numbers only), one
@@ -155,6 +186,10 @@ KERNEL_FILES = {   # name -> (CUDA source, the TPU kernel it replaces)
     "lattice_face_sum_3d": ("face_sum.cu", TPU_KERNELS + ":103"),
     "stiffness_lattice_3d_split": (
         "stiffness_split.cu", "artifacts/bench_stiffness_precision.py:98"),
+    # no Pallas kernel: the JAX package's SpMV (coo_spmv / bsr_spmv) is
+    # XLA's gather and sorted segment_sum
+    "csr_spmv": ("csr_spmv.cu", "polynomial_reduction_with_full_domain_"
+                 "decomposition_preconditioner_tpu/ops/csr.py:308"),
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12,   # f32 non-tensor (bf16
@@ -194,6 +229,27 @@ PREV_MS = {
     ("stiffness_lattice_3d_split", (512, 512, 512)):
         {"bfloat16": 1.411, "float32": 1.839},
 }
+
+
+def spmv_sass_ops(so):
+    """{opcode: count} of the float multiply, add and fused multiply-add
+    instructions in the SpMV kernel's SASS (cuobjdump): an FFMA or DFMA
+    would round where the plain twin does not."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "csr_spmv" in fn:
+            for op in ("FFMA", "DFMA", "FMUL", "FADD", "DMUL", "DADD"):
+                if f" {op} " in line or f" {op}." in line:
+                    counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def emit(obj):
@@ -668,20 +724,110 @@ GATE4_ITERATIONS = 11  # MULTICHIP_r05.json, the one-shard half of gate 4
 def spmv_line(torch, mat, label):
     """One SpMV of a packed matrix timed warm on the card, against its byte
     bound (values, column indices and row offsets read once, x read once,
-    y written once)."""
+    y written once) and its operations bound (a multiply and an add an
+    entry), beside the plain twin and, in f32 / f64, torch.mv on a
+    sparse_csr tensor of the same arrays (cuSPARSE csrmv with its
+    csr_partition pass: the library call, timed here only). Also the
+    largest difference between the kernel and the library call."""
+    import warnings
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops.csr import sparse_spmv
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
     rows, cols = mat.shape
-    x = torch.ones(cols, dtype=mat.dtype, device=mat.vals.device)
+    x = torch.linspace(-1.0, 1.0, cols, device=mat.vals.device).to(mat.dtype)
     nbytes = (mat.nnz * (mat.vals.element_size() + mat.cols.element_size())
               + (rows + 1) * mat.crow.element_size()
               + (rows + cols) * mat.vals.element_size())
+    dt = str(mat.dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * mat.nnz / PEAK_FLOPS[dt] * 1e3
+    bound = max(t_bytes, t_ops)
     ms = cuda_ms(lambda: sparse_spmv(mat, x), 20)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"matrix": label, "rows": rows, "cols": cols, "nnz": mat.nnz,
-            "dtype": str(mat.dtype).replace("torch.", ""),
-            "route": mat.route, "ms": ms, "bytes": nbytes,
-            "bound_ms": bound, "share_of_bound": bound / ms}
+    line = {"matrix": label, "rows": rows, "cols": cols, "nnz": mat.nnz,
+            "dtype": dt, "route": mat.route,
+            "lanes": getattr(mat, "lanes", None), "ms": ms, "bytes": nbytes,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": bound / ms, "plain_ms": None,
+            "library_ms": None}
+    if mat.route == "vector_csr":
+        y = sparse_spmv(mat, x)
+        kernels.csr_spmv_plain(mat, x)      # its lane plan, made once
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(5):
+            kernels.csr_spmv_plain(mat, x)
+        stop.record()
+        torch.cuda.synchronize()
+        line["plain_ms"] = start.elapsed_time(stop) / 5
+        with warnings.catch_warnings():
+            # torch flags its sparse CSR layout as beta on construction
+            warnings.simplefilter("ignore", UserWarning)
+            S = torch.sparse_csr_tensor(mat.crow, mat.cols, mat.vals,
+                                        size=mat.shape)
+        line["library_ms"] = cuda_ms(lambda: torch.mv(S, x), 20)
+        ylib = torch.mv(S, x)
+        line["max_abs_err_vs_library"] = (y - ylib).abs().max().item()
+        line["max_abs_err_vs_plain"] = (
+            y - kernels.csr_spmv_plain(mat, x)).abs().max().item()
+        line["library_over_kernel"] = line["library_ms"] / ms
+    return line
+
+
+SPMV_REPEATS = 200
+
+
+def check_spmv(torch, kernels, mats, phase):
+    """The SpMV kernel against its plain twin, bitwise, on every matrix of
+    ``mats`` ({label: CsrMatrix} in f32 / f64), then SPMV_REPEATS rounds
+    of one call of each matrix in turn, every result bitwise equal to the
+    first. Fails on the first difference; returns the line it emits."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops.csr import sparse_spmv
+    dev = next(iter(mats.values())).vals.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    xs, ys, twin = {}, {}, {}
+    for label, m in mats.items():
+        xs[label] = torch.randn(m.shape[1], generator=gen, device=dev,
+                                dtype=torch.float64).to(m.dtype)
+        ys[label] = sparse_spmv(m, xs[label])
+        twin[label] = bool(torch.equal(
+            ys[label], kernels.csr_spmv_plain(m, xs[label])))
+    changed = {label: 0 for label in mats}
+    for _ in range(SPMV_REPEATS):
+        for label, m in mats.items():
+            if not torch.equal(sparse_spmv(m, xs[label]), ys[label]):
+                changed[label] += 1
+    line = {"phase": phase, "matrices": len(mats),
+            "lanes": {k: m.lanes for k, m in mats.items()},
+            "nnz": {k: m.nnz for k, m in mats.items()},
+            "dtypes": sorted({str(m.dtype).replace("torch.", "")
+                              for m in mats.values()}),
+            "bitwise_vs_twin": twin, "repeats": SPMV_REPEATS,
+            "calls_that_changed": changed}
+    emit(line)
+    if not all(twin.values()) or any(changed.values()):
+        raise AssertionError(f"the SpMV kernel is not bitwise: {line}")
+    return line
+
+
+def hierarchy_mats(tree, prefix=""):
+    """{label: CsrMatrix} of every sparse operator of a packed fem-amg
+    hierarchy (amg/vcycle.pack_hierarchies) or aggregation chain
+    (amg/aggregation.pack_level_chain)."""
+    out = {}
+    for l, lv in enumerate(tree["levels"]):
+        out[f"{prefix}A{l}"] = lv["A"]
+    for l, m in enumerate(tree["prolongs"]):
+        out[f"{prefix}P{l}"] = m
+    for l, m in enumerate(tree["restricts"]):
+        out[f"{prefix}R{l}"] = m
+    for k in ("Q", "Qt"):
+        if k in tree:
+            out[prefix + k] = tree[k]
+    return out
 
 
 def run_femamg(torch, kernels, dev, dom, mesh, mk, u_star, f):
@@ -753,13 +899,31 @@ def run_femamg(torch, kernels, dev, dom, mesh, mk, u_star, f):
             and abs(r0 - FEMAMG_RECORD["r0"]) <= 1e-5 * FEMAMG_RECORD["r0"]
             and plain_calls(counts) == 0 and k1 > 0 and k2 > 0):
         raise AssertionError(f"femamg solve failed its checks: {line}")
-    # where the device time goes: A0's SpMV against its byte bound, the
-    # transfers, and one solve under the profiler
+    # where the device time goes: A0's SpMV against its bound and against
+    # cuSPARSE, the transfers, and one solve under the profiler; the SpMV
+    # kernel bitwise against its twin and itself on every level matrix
+    spmv_timed = {}
     for mat, label in ((A0, "A0"), (tree["Q"], "Q"), (tree["Qt"], "Qt"),
                        (tree["prolongs"][0], "P0"),
                        (tree["restricts"][0], "R0")):
-        emit({"phase": "femamg-spmv", **spmv_line(torch, mat, label)})
-    emit(profile_solve(torch, solve, f, phase="femamg-profile", top_n=16))
+        sl = spmv_line(torch, mat, label)
+        emit({"phase": "femamg-spmv", **sl})
+        if label == "A0":
+            spmv_timed["float32"] = sl
+    A0_64 = csr.CsrMatrix(crow=A0.crow, cols=A0.cols, vals=A0.vals.double(),
+                          shape=A0.shape, route=A0.route, lanes=A0.lanes)
+    spmv_timed["float64"] = spmv_line(torch, A0_64, "A0 in f64")
+    emit({"phase": "femamg-spmv", **spmv_timed["float64"]})
+    check_spmv(torch, kernels, dict(hierarchy_mats(tree), A0_f64=A0_64),
+               "spmv-femamg")
+    del A0_64
+    prof = profile_solve(torch, solve, f, phase="femamg-profile", top_n=16,
+                         families=SPMV_KERNELS)
+    emit(prof)
+    if prof.get("cusparse", {}).get("count", 0) or not prof.get(
+            "spmv", {}).get("count", 1):
+        raise AssertionError(f"the fem-amg solve's SpMV left the kernel: "
+                             f"{prof}")
     del pre, tree, A0, solve, res
 
     # the one-shard half of gate 4: bf16 hierarchy, bf16 Z basis
@@ -808,7 +972,7 @@ def run_femamg(torch, kernels, dev, dom, mesh, mk, u_star, f):
             and sum(counts4["stiffness_lattice_3d"].values()) > 0
             and sum(counts4["lattice_face_sum_3d"].values()) > 0):
         raise AssertionError(f"gate-4 fem-amg solve failed its checks: {line}")
-    return total
+    return total, spmv_timed
 
 
 PMG_DAMPING = 0.5
@@ -1131,16 +1295,36 @@ def run_spmd(torch, kernels, dev, mesh, mk, pmg_line):
 
 # ---- the multi-shard composite (ROADMAP item 10b) ----
 
+def random_csr(torch, gen, dev, rows, cols, nnz, lanes, bits, dtype):
+    """A CSR matrix on the card of ``rows`` x ``cols`` with ``nnz``
+    entries spread as evenly as the rows allow, random columns and values,
+    packed for ``lanes`` lanes a row with ``bits``-bit indices."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops.csr import CsrMatrix
+    itype = torch.int32 if bits == 32 else torch.int64
+    lengths = torch.full((rows,), nnz // rows, dtype=torch.int64, device=dev)
+    lengths[:nnz % rows] += 1
+    crow = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)])
+    return CsrMatrix(
+        crow=crow.to(itype),
+        cols=torch.randint(0, cols, (nnz,), generator=gen, device=dev,
+                           dtype=torch.int64).to(itype),
+        vals=torch.randn(nnz, generator=gen, device=dev,
+                         dtype=torch.float64).to(dtype),
+        shape=(rows, cols), route="vector_csr", lanes=lanes)
+
+
 def check_launched(torch, kernels, dev, phase, checked):
-    """K1 and K2 against their plain twins at every launch signature that
-    the phase's paths produced (kernels.take_signatures) and no earlier
-    check covered, so that each stack a path launches on (every group of
-    every composite, in its ptype) is held to its twin: random inputs at
-    the launched shape, order and dtypes; K1 within 2e-6 (f32), 1e-12
-    (f64) or 1e-2 of max and 5e-2 against its f64 twin (bf16), K2
-    bitwise, with a random mask and weight where the launch had them,
-    and a stack also against one launch per entry. Fails on the first
-    disagreement; forgets the checks' own launches."""
+    """K1, K2 and the SpMV against their plain twins at every launch
+    signature that the phase's paths produced (kernels.take_signatures)
+    and no earlier check covered, so that each stack a path launches on
+    (every group of every composite, in its ptype) is held to its twin:
+    random inputs at the launched shape, order and dtypes; K1 within 2e-6
+    (f32), 1e-12 (f64) or 1e-2 of max and 5e-2 against its f64 twin
+    (bf16), K2 bitwise, with a random mask and weight where the launch
+    had them, and a stack also against one launch per entry; the SpMV
+    bitwise on a random matrix of the launched rows, columns, entries,
+    lanes and index width. Fails on the first disagreement; forgets the
+    checks' own launches."""
     sigs = kernels.take_signatures()
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -1196,10 +1380,23 @@ def check_launched(torch, kernels, dev, phase, checked):
                                  f"launched stack after {phase}: {key}")
         checked.add(key)
         new.append(key)
+    for dt, rows, cols, nnz, lanes, bits in sigs["csr_spmv"]:
+        key = ("csr_spmv", dt, rows, cols, nnz, lanes, bits)
+        if key in checked:
+            continue
+        m = random_csr(torch, gen, dev, rows, cols, nnz, lanes, bits,
+                       dts[dt])
+        x = rand(cols).to(dts[dt])
+        if not torch.equal(kernels.csr_spmv(m, x),
+                           kernels.csr_spmv_plain(m, x)):
+            raise AssertionError(f"csr_spmv disagrees at a launched "
+                                 f"signature after {phase}: {key}")
+        checked.add(key)
+        new.append(key)
     kernels.take_signatures()
     emit({"phase": "kernels", "kernel": "launched signatures",
           "after": phase, "checked": len(new),
-          "k1_max_rel_err": worst, "k2": "bitwise",
+          "k1_max_rel_err": worst, "k2": "bitwise", "csr_spmv": "bitwise",
           "signatures": [list(k) for k in new], "ok": True})
 
 
@@ -1444,7 +1641,10 @@ def run_composite_spmd(torch, kernels, dev, mesh, mk):
             maxit = 200 if (P, name) == (5, "float32") else SHORT_STEPS
             solve = dom.solver(method="fgmres", max_iterations=maxit,
                                precond=pre)
-            best, res, counts = timed_solves(torch, kernels, solve, f, 3)
+            # the long P = 5 f32 solve (96 iterations) is timed once, the
+            # 20-step solves best of 3
+            best, res, counts = timed_solves(
+                torch, kernels, solve, f, 1 if maxit > SHORT_STEPS else 3)
             add_counts(total, counts)
             its = res.iterations
             hist = res.residual_history.cpu().double()
@@ -1922,6 +2122,29 @@ def run_unstructured(torch, kernels, dev):
         if not ok:
             raise AssertionError(f"unstructured solve failed its checks: "
                                  f"{line}")
+        if ptype == torch.float32:
+            # the aggregation chain's SpMVs run the fixed-order kernel: a
+            # second solve of this preconditioner, and a solve of a
+            # second one built afresh, repeat the history bitwise
+            check_spmv(torch, kernels, hierarchy_mats(pre.extra["amg"]["chain"],
+                                                      "chain "),
+                       "spmv-unstructured")
+            hist_again = solve(f).residual_history.cpu()
+            pre2 = composite_dd(dom, mk, poly_reduction=6, inner="amg",
+                                ptype=ptype, fine_mesh=mesh)
+            hist_fresh = dom.solver(method="fgmres", max_iterations=200,
+                                    precond=pre2)(f).residual_history.cpu()
+            rep_line = {"phase": "unstructured-repeat",
+                        "bitwise_second_solve": bool(torch.equal(
+                            hist_again[torch.isfinite(hist_again)], hist)),
+                        "bitwise_fresh_build": bool(torch.equal(
+                            hist_fresh[torch.isfinite(hist_fresh)], hist))}
+            emit(rep_line)
+            if not (rep_line["bitwise_second_solve"]
+                    and rep_line["bitwise_fresh_build"]):
+                raise AssertionError(f"unstructured solves differ: "
+                                     f"{rep_line}")
+            del pre2
         del pre, solve, res
     op_line = {"phase": "unstructured-element-operator",
                **time_element_operator(torch, kernels, dom)}
@@ -2104,9 +2327,11 @@ def run_unstructured_phases(torch, kernels, dev, path_counts, phase_done):
 # compressed: the JAX package's counts too (reference/jax_unstructured.py
 # femamg; tests/test_torch_unstructured_femamg_spmd.py holds the port's)
 FEMAMG_SPMD_CPU = {False: 19, True: 19}
-# the kernels of one f32 / f64 SpMV (ops/csr.py's sparse_csr route):
-# cuSPARSE's y = beta y pass, its row partition and the product
-SPMV_KERNELS = {"spmv": ("csrmv", "csr_partition", "vector_scalar_multiply")}
+# the kernel of one f32 / f64 SpMV (ops/csr.py's vector_csr route,
+# csrc/csr_spmv.cu), and cuSPARSE's kernels, which no solve may launch
+SPMV_KERNELS = {"spmv": ("csr_spmv_kernel",),
+                "cusparse": ("csrmv", "csr_partition",
+                             "vector_scalar_multiply")}
 
 
 def _tensor_tree_equal(a, b):
@@ -2240,6 +2465,7 @@ def run_unstructured_femamg(torch, kernels, dev, phase_done):
             and rel[0] <= 1e-5 and max(rel[1:4]) <= 0.05
             and 0.5 * rec["max_error"] <= err <= 2.0 * rec["max_error"]
             and plain_calls(counts) == 0 and k1 > 0
+            and line["bitwise_two_solves"]
             and bool(torch.isfinite(res.u).all())):
         raise AssertionError(f"unstructured fem-amg failed its checks: {line}")
     for mat, label in ((A0, "A0"), (tree["Q"], "Q"), (tree["Qt"], "Qt"),
@@ -2247,6 +2473,7 @@ def run_unstructured_femamg(torch, kernels, dev, phase_done):
                        (tree["restricts"][0], "R0")):
         emit({"phase": "unstructured-femamg-spmv",
               **spmv_line(torch, mat, label)})
+    check_spmv(torch, kernels, hierarchy_mats(tree), "spmv-unstructured-femamg")
     kernels.reset_counts()
     prof = profile_solve(torch, solve, f, phase="unstructured-femamg-profile",
                          top_n=16, families=SPMV_KERNELS)
@@ -2255,16 +2482,15 @@ def run_unstructured_femamg(torch, kernels, dev, phase_done):
     prof["k1_launches"] = sum(prof["launches"]["stiffness_lattice_3d"]
                               .values())
     emit(prof)
+    if prof.get("cusparse", {}).get("count", 0):
+        raise AssertionError(f"a solve launched cuSPARSE: {prof}")
     del solve, res, res_w, tree, A0
     phase_done("unstructured-femamg")
 
-    # the same preconditioner from the setup cache: no mesh is built. The
-    # card's cuSPARSE CSR SpMV does not repeat bitwise on rows of a few
-    # hundred entries (the aggregation chain's coarse restrictions), so
-    # two solves of one preconditioner part in the last bits (above:
-    # bitwise_two_solves); the cache is held bitwise on every tensor of
-    # the preconditioner, and its solve to the fresh one's count and
-    # history within 1e-3
+    # the same preconditioner from the setup cache: no mesh is built. Every
+    # tensor of the preconditioner and the solve's history are held
+    # bitwise to the fresh build's (the SpMV sums each row in one fixed
+    # order)
     def no_builder(order):
         raise AssertionError("the cached setup built a mesh")
 
@@ -2292,8 +2518,7 @@ def run_unstructured_femamg(torch, kernels, dev, phase_done):
             "fresh_two_solves_max_rel_diff": spread(hist_w, hist),
             "launches": counts}
     emit(line)
-    if not (same > 0 and not differ and len(hist2) == len(hist)
-            and line["max_history_rel_diff_vs_fresh"] <= 1e-3
+    if not (same > 0 and not differ and line["bitwise_history_vs_fresh"]
             and "load" in pre.extra["setup_seconds"]
             and plain_calls(counts) == 0):
         raise AssertionError(f"the cached fem-amg setup differs: {line}")
@@ -2342,6 +2567,191 @@ def run_unstructured_femamg(torch, kernels, dev, phase_done):
         raise AssertionError(f"unstructured fem-amg over 4 shards: {line}")
     phase_done("unstructured-femamg-spmd")
     return total
+
+# the multiprocess phase: its three configurations (runtime/launch.py
+# run specs), each run by 2 processes x 2 shards and by one process
+# holding the 4 shards (LocalComm), the same mesh and right-hand side
+MP_KERSHAW = {"kind": "kershaw", "shape": [16, 16, 16], "order": 7,
+              "epsilon": 0.3}
+MP_RUNS = [
+    {"name": "pmg", "mesh": MP_KERSHAW, "shards": 4, "dtype": "float32",
+     "precond": {"kind": "pmultigrid", "poly_reduction": 2,
+                 "smooth_damping": PMG_DAMPING},
+     "method": "fcg", "max_iterations": 200, "tolerance": 1e-4,
+     "u_star": {"function_id": 4, "seed": 0}, "exchange_reps": 50},
+    {"name": "composite", "mesh": MP_KERSHAW, "shards": 4,
+     "dtype": "float32",
+     "precond": {"kind": "composite", "poly_reduction": 6, "inner": "amg"},
+     "method": "fgmres", "max_iterations": 20, "tolerance": 1e-12,
+     "u_star": {"function_id": 4, "seed": 0}},
+]
+MP_FEMAMG = {"name": "femamg-spmd",
+             "mesh": {"kind": "kershaw", "shape": [8, 8, 8], "order": 2,
+                      "epsilon": 0.3,
+                      "scramble": {"seed": 11, "permute": False}},
+             "shards": 4, "dtype": "float64",
+             "precond": {"kind": "composite", "poly_reduction": 1,
+                         "inner": "fem-amg"},
+             "method": "fgmres", "max_iterations": 200, "tolerance": 1e-8,
+             "u_star": {"function_id": 4, "seed": 3}}
+MP_PROCESSES = 2
+MP_TIMEOUT = 900
+
+
+def _as_tuple(x):
+    return tuple(_as_tuple(v) for v in x) if isinstance(x, list) else x
+
+
+def run_multiprocess(torch, kernels, dev, path_counts):
+    """Two processes on the one card, gloo, each owning 2 of P = 4 shards
+    (runtime/launch.py spawned twice), against the same runs with the 4
+    shards in this process (LocalComm): the p-multigrid solve (count
+    equal, residuals within 1e-5 relative, max|u - u*| within 1e-4, K1 /
+    K2 launches an iteration and the split's extra boundary launches),
+    20 steps of the main path's composite (each residual within 1e-4
+    relative), and the unstructured fem-amg over 4 shards in f64 without
+    and with the per-process setup cache (counts equal, histories within
+    1e-12 of the first residual, the cache hit in both processes). Per
+    process: solve seconds, gloo's host staging copies and bytes, and the
+    slab exchange timed alone. The workers' kernel launches join
+    ``path_counts`` and their launch signatures the next check."""
+    import os
+    import tempfile
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.launch import run_one
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_mp_")
+    cache = os.path.join(work.name, "cache")
+    os.makedirs(cache)
+    runs = MP_RUNS + [dict(MP_FEMAMG, name="femamg-spmd"),
+                      dict(MP_FEMAMG, name="femamg-spmd-cache",
+                           setup_cache=cache)]
+    cfg = os.path.join(work.name, "config.json")
+    out = os.path.join(work.name, "out.json")
+    with open(cfg, "w") as fh:
+        json.dump({"device": None if dev.type == "cuda" else str(dev),
+                   "timeout_seconds": 600, "runs": runs}, fh)
+    init = "file://" + os.path.join(work.name, "store")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", PKG + ".runtime.launch", str(r),
+         str(MP_PROCESSES), init, "gloo", cfg, out],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(MP_PROCESSES)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(MP_TIMEOUT - (time.time() - t0), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    workers_s = time.time() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"a multiprocess worker failed (rc "
+                                 f"{p.returncode}):\n"
+                                 f"{log.decode(errors='replace')[-4000:]}")
+    with open(out) as fh:
+        rec = {r["name"]: r for r in json.load(fh)["runs"]}
+    # the workers' launches join the run's counts, their signatures the
+    # next check_launched
+    for r in rec.values():
+        for pr in r["processes"]:
+            add_counts(path_counts, pr["launches"])
+            for name, sigs in pr.get("signatures", {}).items():
+                for sig in sigs:
+                    getattr(kernels, name).launches.signatures.add(
+                        _as_tuple(sig))
+    local = {}
+    for run in runs[:-1]:
+        kernels.reset_counts()
+        local[run["name"]] = run_one(run, dev, local=True)
+        add_counts(path_counts, local[run["name"]]["launches"])
+    local["femamg-spmd-cache"] = local["femamg-spmd"]
+    work.cleanup()
+
+    def rel(a, b):
+        a, b = torch.tensor(a, dtype=torch.float64), torch.tensor(
+            b, dtype=torch.float64)
+        if a.shape != b.shape:
+            return float("inf")
+        return ((a - b).abs() / b.abs()).max().item()
+
+    def launches(r, name):
+        return sum(r["launches"].get(name, {}).values())
+
+    line = {"phase": "multiprocess", "processes": MP_PROCESSES,
+            "backend": "gloo", "shards": 4, "workers_seconds": workers_s,
+            "runs": {}}
+    ok = True
+    for name, r in rec.items():
+        ref = local[name]
+        procs_out = [{"owned": pr["owned"],
+                      "setup_seconds": pr["setup_seconds"],
+                      "solve_seconds": pr["solve_seconds"],
+                      "host_copies": pr["comm"]["host_copies"],
+                      "host_bytes": pr["comm"]["host_bytes"],
+                      "exchange_host_seconds": pr["comm"]["exchange_seconds"],
+                      "exchanges": pr["comm"]["exchanges"],
+                      "exchange_ms": pr.get("exchange_ms"),
+                      "cache_hit": pr["cache_hit"],
+                      "k1": launches(pr, "stiffness_lattice_3d"),
+                      "k2": launches(pr, "lattice_face_sum_3d"),
+                      "spmv": launches(pr, "csr_spmv")}
+                     for pr in r["processes"]]
+        its = r["iterations"]
+        h, hl = r["history"], ref["history"]
+        entry = {"iterations": its, "local_iterations": ref["iterations"],
+                 "converged": r["converged"],
+                 "residuals": h[:6], "local_residuals": hl[:6],
+                 "max_rel_residual_diff": rel(h, hl),
+                 "max_residual_diff_over_r0": (
+                     max(abs(a - b) for a, b in zip(h, hl)) / hl[0]
+                     if len(h) == len(hl) else float("inf")),
+                 "max_error": r["err"], "local_max_error": ref["err_local"],
+                 "local_solve_seconds": ref["solve_seconds"],
+                 "local_k1": launches(ref, "stiffness_lattice_3d"),
+                 "local_k2": launches(ref, "lattice_face_sum_3d"),
+                 "same_history_in_every_process": r["same_history"],
+                 "per_process": procs_out}
+        plain = sum(plain_calls(pr["launches"]) for pr in r["processes"])
+        good = r["same_history"] and plain == 0 and all(
+            p["k1"] > 0 for p in procs_out)
+        if name == "pmg":
+            k1x = [p["k1"] - entry["local_k1"] for p in procs_out]
+            k2x = [p["k2"] - entry["local_k2"] for p in procs_out]
+            entry["split_extra_k1_per_iteration"] = [k / its for k in k1x]
+            entry["split_extra_k2_per_iteration"] = [k / its for k in k2x]
+            entry["k1_per_iteration"] = [p["k1"] / its for p in procs_out]
+            entry["local_k1_per_iteration"] = entry["local_k1"] / its
+            good = good and (its == ref["iterations"] == 29
+                             and r["converged"]
+                             and entry["max_rel_residual_diff"] <= 1e-5
+                             and abs(r["err"] - ref["err_local"]) <= 1e-4
+                             and k1x == k2x and min(k1x) > 0
+                             and (dev.type != "cuda" or all(
+                                 p["host_copies"] > 0 for p in procs_out)))
+        elif name == "composite":
+            good = good and (len(h) == len(hl) == 21
+                             and entry["max_rel_residual_diff"] <= 1e-4)
+        else:
+            good = good and (its == ref["iterations"] and r["converged"]
+                             and abs(its - FEMAMG_SPMD_CPU[False]) <= 1
+                             and entry["max_residual_diff_over_r0"] <= 1e-12
+                             and r["err"] < 1e-6)
+            if name.endswith("cache"):
+                good = good and all(p["cache_hit"] for p in procs_out)
+        entry["ok"] = bool(good)
+        ok = ok and good
+        line["runs"][name] = entry
+    emit(line)
+    if not ok:
+        raise AssertionError(f"the multiprocess phase failed its checks: "
+                             f"{line}")
 
 
 def run_host_refine(torch, kernels, dom, mesh, solve, u_star, device_ref):
@@ -2421,8 +2831,12 @@ def main():
     t0 = time.time()
     so = cuda_lib.build()
     cuda_lib.load()
+    sass = spmv_sass_ops(so)
     emit({"phase": "build", "seconds": time.time() - t0, "library": so[-40:],
-          "ptxas": cuda_lib.resource_usage()})
+          "ptxas": cuda_lib.resource_usage(), "csr_spmv_sass": sass})
+    if sass.get("FFMA", 0) or sass.get("DFMA", 0) or not sass.get("FADD"):
+        raise AssertionError(f"the SpMV kernel's SASS contracts or lacks its "
+                             f"adds: {sass}")
     phase_done("env+build")
 
     timed, level_ms = check_kernels(torch, kernels, dev)
@@ -2544,8 +2958,9 @@ def main():
     add_counts(path_counts, pmg_counts)
     phase_done("pmg")
 
-    add_counts(path_counts, run_femamg(torch, kernels, dev, dom, mesh, mk,
-                                       u_star, f))
+    femamg_counts, spmv_timed = run_femamg(torch, kernels, dev, dom, mesh, mk,
+                                           u_star, f)
+    add_counts(path_counts, femamg_counts)
     phase_done("femamg")
 
     add_counts(path_counts, run_spmd_ops(torch, kernels, dev, mesh))
@@ -2559,6 +2974,8 @@ def main():
     run_unstructured_phases(torch, kernels, dev, path_counts, phase_done)
     add_counts(path_counts, run_unstructured_femamg(torch, kernels, dev,
                                                     phase_done))
+    run_multiprocess(torch, kernels, dev, path_counts)
+    phase_done("multiprocess")
 
     entries = []
     for (name, dt), t in sorted(timed.items()):
@@ -2592,6 +3009,25 @@ def main():
                 "lattice_face_sum_3d_batched", {}).get(dt, 0)
             entry["batched"] = batched[dt]
         entries.append(entry)
+    # the fixed-order SpMV, timed on the fem-amg A0 (f32, and its values in
+    # f64) in the femamg phase; its library call is torch.mv on a
+    # sparse_csr tensor of the same arrays (cuSPARSE), timed there only
+    source, replaces = KERNEL_FILES["csr_spmv"]
+    for dt, sl in sorted(spmv_timed.items()):
+        launches = path_counts.get("csr_spmv", {}).get(dt, 0)
+        if launches == 0:
+            raise AssertionError(f"csr_spmv[{dt}] was launched on no path")
+        entries.append({
+            "name": f"csr_spmv[{dt}]", "route": "cuda",
+            "source": f"{PKG}/csrc/{source}", "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": sl["max_abs_err_vs_plain"],
+            "ms": sl["ms"], "plain_ms": sl["plain_ms"],
+            "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
+            "library_ms": sl["library_ms"],
+            "matrix": [sl["rows"], sl["cols"], sl["nnz"]],
+            "lanes": sl["lanes"],
+            "share_of_bound": sl["share_of_bound"]})
     # old against new, apart from the "kernels" line: prev_ms is a constant
     # of this file, ms is this run's warm time of the same launch
     now_ms = {(name, (128, 128, 128), dt): t["ms"]
@@ -2605,8 +3041,9 @@ def main():
                      "prev_ms": PREV_MS[name, shape][dt], "ms": ms,
                      "speedup": PREV_MS[name, shape][dt] / ms}
                     for (name, shape, dt), ms in sorted(now_ms.items())]}})
-    print("no single PyTorch call computes any of these kernels' functions: "
-          "library_ms is null", flush=True)
+    print("no single PyTorch call computes K1's, K2's or K3's function: "
+          "their library_ms is null; the SpMV's is torch.mv on a sparse_csr "
+          "tensor (cuSPARSE), timed and used nowhere else", flush=True)
     emit({"phase_seconds": phase_seconds,
           "total_seconds": sum(phase_seconds.values())})
     emit({"kernels": entries})

@@ -145,7 +145,8 @@ def _block_diag_csr(mats) -> sp.csr_matrix:
                          shape=(P * n_rows, P * n_cols))
 
 
-def pack_hierarchies(hiers, dtype=torch.float32, *, device) -> dict:
+def pack_hierarchies(hiers, dtype=torch.float32, *, device, stacked=None,
+                     select=None) -> dict:
     """Tensors on ``device`` for the shards' assembled hierarchies:
     ``hiers`` is a list of objects with HostHierarchy's fields (scipy
     sparse matrices and numpy arrays; a hierarchy the JAX package built
@@ -154,15 +155,25 @@ def pack_hierarchies(hiers, dtype=torch.float32, *, device) -> dict:
     CsrMatrix in ``dtype`` (its SpMV route follows the dtype,
     ops/csr.py).
 
-    One hierarchy packs unstacked, for flat vectors. P > 1 pack stacked,
-    for (P, n) vectors: each sparse operator is the block-diagonal matrix
-    of the P shards' (one SpMV for all shards on the (P n,) view),
-    ``invd`` and ``dof_mask`` are (P, n), ``lmax`` (P, 1) and
-    ``coarse_inv`` (P, nc, nc); ``shards`` is P."""
+    ``stacked`` False packs one hierarchy unstacked, for flat vectors;
+    True packs P of them stacked, for (P, n) vectors: each sparse operator
+    is the block-diagonal matrix of the P shards' (one SpMV for all shards
+    on the (P n,) view), ``invd`` and ``dof_mask`` are (P, n), ``lmax``
+    (P, 1) and ``coarse_inv`` (P, nc, nc); ``shards`` is P. It follows
+    the Domain's sharding, not the count: a process that owns one shard
+    of a sharded domain packs a (1, n) stack. None: stacked for more than
+    one hierarchy. ``select``: the indices of the hierarchies to pack
+    (this process's shards, when every shard's was built to agree on the
+    padded sizes); default all."""
+    if select is not None:
+        hiers = [hiers[i] for i in select]
     if not hiers:
         raise ValueError("no hierarchy to pack")
     P = len(hiers)
-    stacked = P > 1
+    if stacked is None:
+        stacked = P > 1
+    elif not stacked and P > 1:
+        raise ValueError(f"{P} hierarchies cannot pack unstacked")
     pack = lambda ms: csr_from_scipy(
         _block_diag_csr(ms) if stacked else ms[0], dtype=dtype,
         device=device)

@@ -11,9 +11,12 @@ with another shard, indexed into one compact global interface vector
 that the generic dssum sums across shards with one psum
 (ops/gather_scatter.py).
 
-Every shard is materialized here: a process that holds only some of them
-(``owned`` in the JAX package) belongs to the ``torch.distributed``
-backend, ROADMAP item 10c.
+``owned`` names the global shards whose host arrays are materialized
+(default all): a process of a multi-process run (runtime/distributed.py)
+passes its own contiguous run, so that its setup memory follows its own
+shards. The index pass that finds the interface nodes and the padded
+sizes is global and runs on every process; the global orderings
+(``elem_offsets``, interface ids) stay global.
 """
 
 from __future__ import annotations
@@ -88,6 +91,12 @@ class ShardedDomain:
     num_boundary_global: int         # BG
     structured: StructuredInfo | None = None
     elem_offsets: tuple[int, ...] = ()   # global element offset per shard (P+1)
+    owned: tuple[int, ...] = ()      # global shards materialized here, in
+    #   order: the leading axis of every per-shard array above
+
+    @property
+    def num_owned(self) -> int:
+        return len(self.owned) if self.owned else self.num_shards
 
     @property
     def num_points_per_elem(self) -> int:
@@ -103,18 +112,24 @@ class ShardedDomain:
 
 
 def partition_mesh(mesh: GlobalMesh, num_shards: int,
-                   structured: bool | str = "auto") -> ShardedDomain:
+                   structured: bool | str = "auto",
+                   owned=None) -> ShardedDomain:
     """Partition a GlobalMesh into ``num_shards`` SPMD shards.
 
     structured: True or "auto" aligns shard boundaries to slabs of the
     last element-grid dimension (the structured lattice path); False
     forces the generic contiguous split by element count.
+    owned: the global shard indices whose host arrays are materialized,
+    in order (default all of them).
     """
     E_tot = mesh.num_elements
     npe = mesh.num_points_per_elem
     P = num_shards
     if P < 1:
         raise ValueError(f"num_shards must be at least 1, got {P}")
+    owned = tuple(range(P)) if owned is None else tuple(int(p) for p in owned)
+    if not owned or any(not 0 <= p < P for p in owned):
+        raise ValueError(f"owned shards {owned} are not among the {P}")
     layout = getattr(mesh, "structured_layout", True)
     if structured is True and not layout:
         raise ValueError("mesh elements are not in structured slab order")
@@ -188,45 +203,47 @@ def partition_mesh(mesh: GlobalMesh, num_shards: int,
             num_boundary_global=BG,
             structured=sinfo,
             elem_offsets=offsets,
+            owned=(0,),
         )
 
-    geom = np.zeros((P, E, npe, mesh.num_geom))
-    mass = None if mesh.mass is None else np.zeros((P, E, npe))
-    coords = np.zeros((P, E, npe, mesh.dim))
-    mask = np.zeros((P, E * npe))
-    glo = np.full((P, E, npe), -1, dtype=np.int64)
-    valid = np.zeros((P, E), dtype=bool)
-    inv_deg_pts = np.zeros((P, E * npe))
-    gather_ids = np.full((P, E * npe), NN, dtype=np.int32)
-    node_valid = np.zeros((P, NN + 1))
-    inv_degree = np.zeros((P, NN + 1))
-    bnode_local = np.full((P, B), NN, dtype=np.int32)
-    bnode_global = np.full((P, B), BG, dtype=np.int32)
+    Pl = len(owned)
+    geom = np.zeros((Pl, E, npe, mesh.num_geom))
+    mass = None if mesh.mass is None else np.zeros((Pl, E, npe))
+    coords = np.zeros((Pl, E, npe, mesh.dim))
+    mask = np.zeros((Pl, E * npe))
+    glo = np.full((Pl, E, npe), -1, dtype=np.int64)
+    valid = np.zeros((Pl, E), dtype=bool)
+    inv_deg_pts = np.zeros((Pl, E * npe))
+    gather_ids = np.full((Pl, E * npe), NN, dtype=np.int32)
+    node_valid = np.zeros((Pl, NN + 1))
+    inv_degree = np.zeros((Pl, NN + 1))
+    bnode_local = np.full((Pl, B), NN, dtype=np.int32)
+    bnode_global = np.full((Pl, B), BG, dtype=np.int32)
 
-    for p in range(P):
+    for k, p in enumerate(owned):
         lo, hi = bounds[p], bounds[p + 1]
         ne = hi - lo
-        geom[p, :ne] = mesh.geom[lo:hi]
+        geom[k, :ne] = mesh.geom[lo:hi]
         if mass is not None:
-            mass[p, :ne] = mesh.mass[lo:hi]
-        coords[p, :ne] = mesh.coords[lo:hi]
-        mask[p, :ne * npe] = mesh.dirichlet_mask[lo:hi].ravel()
-        glo[p, :ne] = mesh.glo_num[lo:hi]
-        valid[p, :ne] = True
-        inv_deg_pts[p, :ne * npe] = 1.0 / mesh.node_degree[lo:hi].ravel()
+            mass[k, :ne] = mesh.mass[lo:hi]
+        coords[k, :ne] = mesh.coords[lo:hi]
+        mask[k, :ne * npe] = mesh.dirichlet_mask[lo:hi].ravel()
+        glo[k, :ne] = mesh.glo_num[lo:hi]
+        valid[k, :ne] = True
+        inv_deg_pts[k, :ne * npe] = 1.0 / mesh.node_degree[lo:hi].ravel()
         # local numbering: the shard's nodes in global order, each point's
         # id its rank among them
         pres = presence[p]
         uniq = np.flatnonzero(pres)
         rank = np.cumsum(pres, dtype=np.int64) - 1
         inv = rank[mesh.glo_num[lo:hi].ravel()]
-        gather_ids[p, :inv.size] = inv.astype(np.int32)
-        node_valid[p, :uniq.size] = 1.0
-        inv_degree[p, :uniq.size] = 1.0 / degree_global[uniq]
+        gather_ids[k, :inv.size] = inv.astype(np.int32)
+        node_valid[k, :uniq.size] = 1.0
+        inv_degree[k, :uniq.size] = 1.0 / degree_global[uniq]
         is_iface = iface_index[uniq] >= 0
         bl = np.flatnonzero(is_iface).astype(np.int32)
-        bnode_local[p, :bl.size] = bl
-        bnode_global[p, :bl.size] = iface_index[uniq[is_iface]].astype(
+        bnode_local[k, :bl.size] = bl
+        bnode_global[k, :bl.size] = iface_index[uniq[is_iface]].astype(
             np.int32)
 
     return ShardedDomain(
@@ -251,4 +268,5 @@ def partition_mesh(mesh: GlobalMesh, num_shards: int,
         num_boundary_global=BG,
         structured=sinfo,
         elem_offsets=offsets,
+        owned=owned,
     )

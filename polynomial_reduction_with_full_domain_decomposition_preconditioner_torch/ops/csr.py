@@ -7,32 +7,37 @@ tile-padding workarounds; here one container, ``CsrMatrix``, is packed
 from a scipy CSR in a dtype on an explicit device, and the route is fixed
 by the dtype when the matrix is packed:
 
-- float32 / float64: a ``torch.sparse_csr_tensor`` SpMV (MKL on the CPU,
-  cuSPARSE on the card), indices int32 while they fit, else int64;
+- float32 / float64: the fixed-order CSR SpMV ``kernels.csr_spmv``
+  (csrc/csr_spmv.cu on the card, its plain twin on the CPU): ``lanes``
+  threads a row, chosen here from the row lengths, each summing every
+  L-th entry in ascending order, then a fixed butterfly over the lanes.
+  Every row has one summation order, so y repeats bit for bit from
+  launch to launch and the twin reproduces it. Indices int32 while they
+  fit, else int64;
 - bfloat16: the values are stored in bf16, multiplied with the gathered
   x in f32 and summed per row in f32 by a sorted ``segment_reduce``
   (deterministic: one fixed summation order per row), then cast once to
-  bf16. The same torch ops run on the CPU and on the card
-  (``sparse_csr @ x`` has no bf16 kernel).
+  bf16. The same torch ops run on the CPU and on the card.
 
 The index tensors are built once here, never per apply.
 """
 
 from __future__ import annotations
 
-import warnings
 from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from . import kernels
+
 __all__ = ["assemble_csr", "CsrMatrix", "csr_from_scipy", "sparse_spmv",
            "ROUTES"]
 
 ROUTES = {
-    torch.float32: "sparse_csr",    # torch.sparse_csr_tensor @ x
-    torch.float64: "sparse_csr",
+    torch.float32: "vector_csr",    # kernels.csr_spmv, summed in f32
+    torch.float64: "vector_csr",    # ... in f64
     torch.bfloat16: "segment_sum",  # bf16 values, f32 products and sums
 }
 
@@ -56,7 +61,15 @@ class CsrMatrix:
     vals: torch.Tensor          # (nnz,) values in the matrix dtype
     shape: tuple
     route: str
-    sparse: torch.Tensor | None = None   # the sparse_csr tensor (its route)
+    lanes: int = 1              # vector_csr: threads a row (kernels.spmv_lanes)
+    plan: dict | None = None    # vector_csr: the twin's segments (lane_plan)
+
+    def lane_plan(self) -> dict:
+        """The kernel's per-(row, lane) summation segments for the plain
+        twin (kernels.spmv_lane_plan), made at first use and kept."""
+        if self.plan is None:
+            self.plan = kernels.spmv_lane_plan(self.crow, self.lanes)
+        return self.plan
 
     @property
     def dtype(self):
@@ -80,19 +93,16 @@ def csr_from_scipy(m, dtype=torch.float32, *, device) -> CsrMatrix:
     n_rows, n_cols = m.shape
     fits32 = max(m.nnz, n_rows, n_cols) < 2 ** 31
     route = ROUTES[dtype]
-    itype = torch.int32 if fits32 and route == "sparse_csr" else torch.int64
+    itype = torch.int32 if fits32 and route == "vector_csr" else torch.int64
     crow = torch.as_tensor(m.indptr.astype(np.int64), device=device).to(itype)
     cols = torch.as_tensor(m.indices.astype(np.int64), device=device).to(itype)
     vals = torch.as_tensor(m.data, dtype=torch.float64, device=device).to(dtype)
     mat = CsrMatrix(crow=crow, cols=cols, vals=vals,
                     shape=(n_rows, n_cols), route=route)
-    if route == "sparse_csr":
-        with warnings.catch_warnings():
-            # torch flags its sparse CSR layout as beta on every construction
-            warnings.simplefilter("ignore", UserWarning)
-            mat.sparse = torch.sparse_csr_tensor(
-                crow, cols, vals, size=(n_rows, n_cols),
-                check_invariants=False)
+    if route == "vector_csr":
+        mat.lanes = kernels.spmv_lanes(m.nnz, n_rows)
+        if crow.device.type == "cpu":   # the twin is the CPU's route
+            mat.lane_plan()
     return mat
 
 
@@ -101,8 +111,8 @@ def sparse_spmv(mat: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 1 or x.numel() != mat.shape[1]:
         raise ValueError(f"x of shape {tuple(x.shape)} for a "
                          f"{mat.shape} matrix")
-    if mat.route == "sparse_csr":
-        return torch.mv(mat.sparse, x.to(mat.dtype))
+    if mat.route == "vector_csr":
+        return kernels.csr_spmv(mat, x.to(mat.dtype).contiguous())
     prod = mat.vals.float() * x.float()[mat.cols]
     y = torch.segment_reduce(prod, "sum", offsets=mat.crow, unsafe=True)
     return y.to(mat.dtype)

@@ -119,4 +119,6 @@ def load() -> ctypes.CDLL:
     lib.prfdd_face_sum_3d.argtypes = ([i32, i32, i32] + [vp] * 4 + [i64] * 4
                                       + [i32] * 3 + [vp])
     lib.prfdd_face_sum_3d.restype = i32
+    lib.prfdd_csr_spmv.argtypes = [i32, i32] + [vp] * 5 + [i64, i32, vp]
+    lib.prfdd_csr_spmv.restype = i32
     return lib

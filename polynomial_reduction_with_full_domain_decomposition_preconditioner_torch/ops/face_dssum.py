@@ -279,15 +279,20 @@ def face_assemble(x, plan: dict, comm=None):
     xf = x.reshape(-1)
     y = xf + torch.cat([xf, xf.new_zeros(1)])[plan["partner"]]
     sums = plan["sums"]
+    BG = plan["num_boundary_global"]
+    # every process of a multi-process comm joins the psum, also one whose
+    # shards hold no interface node
+    join = comm is not None and comm.size > 1 and BG > 0 and (
+        plan["iface_node"].numel() or comm.local_shards < comm.size)
     if sums is None:
+        if join:
+            comm.psum(xf.new_zeros(comm.local_shards, BG + 1))
         return y.reshape(shape)
     s = ordered_scatter_add(xf.new_zeros(plan["num_nodes"]), xf, sums)
-    BG = plan["num_boundary_global"]
-    if comm is not None and comm.size > 1 and BG > 0 \
-            and plan["iface_node"].numel():
-        buf = s.new_zeros(comm.size * (BG + 1))
+    if join:
+        buf = s.new_zeros(comm.local_shards * (BG + 1))
         buf.index_copy_(0, plan["iface_slot"], s[plan["iface_node"]])
-        total = comm.psum(buf.view(comm.size, BG + 1))
+        total = comm.psum(buf.view(comm.local_shards, BG + 1))
         s = s.index_copy(0, plan["iface_node"], total[plan["iface_global"]])
     return y.index_copy(0, sums["perm"], s[plan["back"]]).reshape(shape)
 

@@ -3,7 +3,8 @@
 Each kernel keeps the JAX name of the Pallas TPU kernel it replaces
 (``..._tpu/ops/pallas_kernels.py``; the bf16-split study kernel K3
 replaces ``artifacts/bench_stiffness_precision.py::apply_split`` and is
-named after K1) and has a plain PyTorch twin,
+named after K1; the fixed-order CSR SpMV ``csr_spmv`` replaces no TPU
+kernel, see csrc/csr_spmv.cu) and has a plain PyTorch twin,
 ``*_plain``, with the same arithmetic. Dispatch: a CPU tensor goes to the
 plain twin; a CUDA tensor goes to the kernel (csrc/*.cu, built on first
 use by ops/cuda_lib.py) or raises — there is no fallback.
@@ -31,6 +32,7 @@ from .sem import dmul
 __all__ = ["stiffness_lattice_3d", "stiffness_lattice_3d_plain",
            "stiffness_lattice_3d_split", "stiffness_lattice_3d_split_plain",
            "lattice_face_sum_3d", "lattice_face_sum_3d_plain",
+           "csr_spmv", "csr_spmv_plain", "spmv_lanes", "spmv_lane_plan",
            "LaunchCount", "reset_counts", "counts", "take_signatures"]
 
 _CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
@@ -601,14 +603,122 @@ def lattice_face_sum_3d(U, n: int, mask=None, weight=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The fixed-order CSR SpMV (no TPU counterpart: the JAX package leaves its
+# SpMV to XLA's gather and sorted segment_sum)
+
+
+# threads the SpMV aims to start: about 8 resident grids of the H100
+# (132 SMs x 2,048 threads), enough to hide its dependent loads
+_SPMV_THREADS = 1 << 21
+
+
+def spmv_lanes(nnz: int, n_rows: int) -> int:
+    """Lanes a row for the SpMV kernel, a power of two from 1 to 32: as
+    few as give the card _SPMV_THREADS threads, and no more than the mean
+    row length (rounded down to a power of two)."""
+    mean = nnz / max(n_rows, 1)
+    lanes = 1
+    while (lanes < 32 and 2 * lanes <= mean
+           and lanes * n_rows < _SPMV_THREADS):
+        lanes *= 2
+    return lanes
+
+
+def spmv_lane_plan(crow, lanes: int) -> dict:
+    """The kernel's summation order as segments of one ordered sum: lane l
+    of a row sums its entries start + l, start + l + L, ... in ascending
+    order. Returns ``lengths``, the (n_rows * L,) entries of each (row,
+    lane) segment, and ``perm``, the entries in segment order (None when
+    L = 1: CSR order already is), as int64 tensors on crow's device."""
+    crow = crow.to(torch.int64)
+    rl = crow[1:] - crow[:-1]
+    n = rl.numel()
+    lane = torch.arange(lanes, device=crow.device)
+    lengths = ((rl[:, None] - lane + (lanes - 1)) // lanes).reshape(-1)
+    if lanes == 1:
+        return {"lengths": lengths, "perm": None}
+    nnz = int(crow[-1])
+    row_of = torch.repeat_interleave(torch.arange(n, device=crow.device), rl)
+    q = torch.arange(nnz, device=crow.device) - crow[:-1][row_of]
+    seg_start = torch.cumsum(lengths, 0) - lengths
+    dest = seg_start[row_of * lanes + q % lanes] + q // lanes
+    perm = torch.empty(nnz, dtype=torch.int64, device=crow.device)
+    perm[dest] = torch.arange(nnz, device=crow.device)
+    return {"lengths": lengths, "perm": perm}
+
+
+def csr_spmv_plain(mat, x):
+    """The kernel's arithmetic in torch: the products vals * x[cols] in
+    the matrix dtype, each (row, lane) segment summed first to last from 0
+    (an ordered ``segment_reduce`` on an (N, 1) column, which sums in this
+    order on the CPU and on the card), then the lanes added by the
+    kernel's xor butterfly: lane l + off into lane l, off = L/2, ..., 1."""
+    csr_spmv_plain.calls.add(mat.vals.dtype)
+    n_rows, lanes = mat.shape[0], mat.lanes
+    plan = mat.lane_plan()
+    prod = mat.vals * x[mat.cols]
+    if plan["perm"] is not None:
+        prod = prod[plan["perm"]]
+    part = torch.segment_reduce(prod.unsqueeze(1), "sum",
+                                lengths=plan["lengths"], axis=0,
+                                unsafe=True).view(n_rows, lanes)
+    off = lanes // 2
+    while off >= 1:
+        part = part[:, :off] + part[:, off:2 * off]
+        off //= 2
+    return part[:, 0]
+
+
+_INDEX_BITS = {torch.int32: 32, torch.int64: 64}
+
+
+def csr_spmv(mat, x):
+    """y = A x for a CsrMatrix (ops/csr.py) in f32 or f64 and a flat x of
+    its column count and dtype: the fixed-order kernel on a CUDA tensor,
+    its plain twin on a CPU one."""
+    if x.device.type == "cpu":
+        return csr_spmv_plain(mat, x)
+    name = "csr_spmv"
+    if x.device.type != "cuda" or mat.vals.device != x.device:
+        raise ValueError(f"{name}: x on {x.device} and the matrix on "
+                         f"{mat.vals.device} have no kernel")
+    if mat.vals.dtype not in (torch.float32, torch.float64) \
+            or x.dtype != mat.vals.dtype:
+        raise TypeError(f"{name}: need f32 or f64 values and an x of "
+                        f"their dtype, got {mat.vals.dtype} and {x.dtype}")
+    bits = _INDEX_BITS.get(mat.cols.dtype)
+    if bits is None or mat.crow.dtype != mat.cols.dtype:
+        raise TypeError(f"{name}: crow and cols need one of int32, int64")
+    if not (x.is_contiguous() and mat.vals.is_contiguous()
+            and mat.cols.is_contiguous() and mat.crow.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    n_rows = mat.shape[0]
+    y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
+    if n_rows == 0:
+        return y
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = cuda_lib.load().prfdd_csr_spmv(
+            _CODE[x.dtype], bits, mat.crow.data_ptr(), mat.cols.data_ptr(),
+            mat.vals.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows,
+            mat.lanes, stream)
+    _raise_on(err, name)
+    csr_spmv.launches.add(x.dtype, (n_rows, mat.shape[1], mat.nnz,
+                                    mat.lanes, bits))
+    return y
+
+
 stiffness_lattice_3d.launches = LaunchCount()
 stiffness_lattice_3d_split.launches = LaunchCount()
 lattice_face_sum_3d.launches = LaunchCount()
 # the launches on (B, Mz, My, Mx) stacks among lattice_face_sum_3d's
 lattice_face_sum_3d.batched_launches = LaunchCount()
+csr_spmv.launches = LaunchCount()
 stiffness_lattice_3d_plain.calls = LaunchCount()
 stiffness_lattice_3d_split_plain.calls = LaunchCount()
 lattice_face_sum_3d_plain.calls = LaunchCount()
+csr_spmv_plain.calls = LaunchCount()
 _COUNTS = {
     "stiffness_lattice_3d": stiffness_lattice_3d.launches,
     "stiffness_lattice_3d_split": stiffness_lattice_3d_split.launches,
@@ -617,6 +727,8 @@ _COUNTS = {
     "stiffness_lattice_3d_plain": stiffness_lattice_3d_plain.calls,
     "stiffness_lattice_3d_split_plain": stiffness_lattice_3d_split_plain.calls,
     "lattice_face_sum_3d_plain": lattice_face_sum_3d_plain.calls,
+    "csr_spmv": csr_spmv.launches,
+    "csr_spmv_plain": csr_spmv_plain.calls,
 }
 
 
@@ -633,12 +745,13 @@ def counts() -> dict:
 
 
 def take_signatures() -> dict:
-    """{name: sorted signatures} of K1's and K2's launches since the last
-    call, and forget them. A K1 signature is (dtype, (Mz, My, Mx), n) of
-    the launched lattice (a stack as its (P * Mz, My, Mx) view); a K2 one
-    (dtype, shape, n, mask/weight dtype, has mask, has weight)."""
+    """{name: sorted signatures} of K1's, K2's and the SpMV's launches
+    since the last call, and forget them. A K1 signature is (dtype, (Mz,
+    My, Mx), n) of the launched lattice (a stack as its (P * Mz, My, Mx)
+    view); a K2 one (dtype, shape, n, mask/weight dtype, has mask, has
+    weight); an SpMV one (dtype, rows, cols, nnz, lanes, index bits)."""
     out = {}
-    for name in ("stiffness_lattice_3d", "lattice_face_sum_3d"):
+    for name in ("stiffness_lattice_3d", "lattice_face_sum_3d", "csr_spmv"):
         c = _COUNTS[name]
         out[name] = sorted(c.signatures, key=repr)
         c.signatures.clear()

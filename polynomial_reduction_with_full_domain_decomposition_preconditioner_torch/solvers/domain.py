@@ -17,7 +17,10 @@ Domain under ``jax.shard_map``): the shard-local code runs once on
 stacked tensors, fields (P, Mz, My, Mx) with every slab padded to the
 largest and zero at padding, and the collectives come from a
 ``runtime/comm`` object (``LocalComm(P)``: all P shards in this process,
-as the card runs them). Tensors live on ``device`` (None: the card).
+as the card runs them; ``ProcessComm(P)``: the shards split over the
+processes of a ``torch.distributed`` group, each process holding only
+its own, ``sharded.owned``). Tensors live on ``device`` (None: the
+card).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..mesh.partition import ShardedDomain
 from ..ops import face_dssum as fd
 from ..ops import gather_scatter as gs
 from ..ops import sem
+from ..ops.kernels import lattice_face_sum_3d
 from ..runtime.comm import LocalComm
 from ..utils.gll import diff_matrix
 from . import krylov
@@ -45,7 +49,7 @@ def shard_face_plans(sd):
     global node ids, global multiplicities and interface nodes."""
     n = sd.poly_degree + 1
     plans = []
-    for k in range(sd.num_shards):
+    for k in range(sd.num_owned):
         ivd = sd.inv_degree_pts[k]
         deg = np.where(ivd > 0, np.round(1.0 / np.maximum(ivd, 1e-30)),
                        0.0).astype(np.int64)
@@ -85,6 +89,14 @@ def top_planes(layers, n: int, planes: int):
     return torch.remainder(layers * n - 1, planes)
 
 
+def _planes_from(t, starts, n: int):
+    """Each shard's n planes from its own start plane, of a stacked
+    (shards, Mz, My, Mx) tensor: a slice where the starts agree."""
+    if len(set(starts)) == 1:
+        return t[:, starts[0]:starts[0] + n]
+    return torch.stack([t[k, h:h + n] for k, h in enumerate(starts)])
+
+
 class Domain:
     """User-facing fine-level problem.
 
@@ -94,7 +106,7 @@ class Domain:
       device: None for the card (raises without CUDA), or e.g. "cpu".
       comm: the collectives over the shards (runtime/comm.py); default
         ``LocalComm(sharded.num_shards)``. Its size must equal the shard
-        count.
+        count and its local shards the partition's owned ones.
     """
 
     def __init__(self, sharded: ShardedDomain, *, dtype=torch.float32,
@@ -106,6 +118,13 @@ class Domain:
         if self.comm.size != P:
             raise ValueError(f"the comm has {self.comm.size} shards but the "
                              f"domain has {P}")
+        self.owned = sharded.owned or tuple(range(P))
+        self.num_owned = len(self.owned)
+        if self.comm.local_shards != self.num_owned:
+            raise ValueError(f"the comm holds {self.comm.local_shards} shards "
+                             f"in this process but the partition owns "
+                             f"{self.num_owned}")
+        self.multiprocess = self.comm.processes > 1
         self.device = resolve_device(device)
         self.sharded = sharded
         self.dtype = dtype
@@ -134,11 +153,15 @@ class Domain:
             inv_degree_pts=self.shard_put(stack(sharded.inv_degree_pts),
                                           small),
             D=torch.as_tensor(diff_matrix(n), device=self.device).to(dtype),
-            layers=torch.as_tensor(sharded.structured.layer_counts,
-                                   dtype=torch.int64, device=self.device),
+            layers=torch.as_tensor(
+                [sharded.structured.layer_counts[p] for p in self.owned],
+                dtype=torch.int64, device=self.device),
         )
         self._top = (top_planes(self.arrays.layers, n, self.lattice_shape[0])
                      if self.spmd and self.ragged else None)
+        self._edges = (self._edge_layers() if self.multiprocess
+                       and (self.ragged or sharded.structured.slab_elems >= 3)
+                       else None)
 
     def _init_unstructured(self):
         """Element-layout arrays and the face-block dssum plan, one plan a
@@ -162,9 +185,25 @@ class Domain:
                 self.dtype),
             layers=None, fb=fb)
 
+    def _edge_layers(self):
+        """The boundary-first split's element layers on each owned shard:
+        the bottom one at planes [0, n) and the real top one at [h, h + n)
+        (h = top plane + 1 - n), with their geometry as contiguous
+        stacks, kept for every apply."""
+        n = self.poly_degree + 1
+        Mz = self.lattice_shape[0]
+        counts = self.sharded.structured.layer_counts
+        hi0 = [(counts[p] * n - 1) % Mz + 1 - n for p in self.owned]
+        return {"hi0": hi0,
+                "geom_lo": tuple(g[:, :n].contiguous()
+                                 for g in self.arrays.geom),
+                "geom_hi": tuple(_planes_from(g, hi0, n).contiguous()
+                                 for g in self.arrays.geom)}
+
     def shard_put(self, stacked, dtype=None):
-        """A per-shard host array (leading axis = shards) -> a device
-        tensor: the one shard squeezed when P = 1, the stack otherwise."""
+        """A per-shard host array (leading axis = the owned shards) -> a
+        device tensor: the one shard squeezed when P = 1, the stack
+        otherwise."""
         x = np.ascontiguousarray(stacked if self.spmd else stacked[0])
         t = torch.as_tensor(x, device=self.device)
         return t if dtype is None else t.to(dtype)
@@ -225,16 +264,41 @@ class Domain:
                                        krylov.tree_dot(z, w))
 
         op_dssum = None
-        if self.spmd and a.fb is None and (
-                self.ragged or self.sharded.structured.slab_elems >= 3):
-            # the JAX package computes the boundary layers first, starts
-            # the slab ppermutes on their planes and overlaps them with the
-            # interior apply, bitwise equal to operator then dssum. One
-            # process holding every shard has no asynchronous exchange to
-            # hide, so this is the full apply and the dssum; the split
-            # with the exchange on its own stream belongs to the
-            # torch.distributed backend (ROADMAP item 10c). The route is
-            # the JAX package's, because FCG's numbers depend on it.
+        fused = self.spmd and a.fb is None and (
+            self.ragged or self.sharded.structured.slab_elems >= 3)
+        if fused and self.multiprocess:
+            # the boundary-first split of the JAX package's SPMD Domain:
+            # the two boundary element layers first, their outer planes
+            # face-summed in x and y (K2 on the layer: its z pass leaves
+            # a layer's first and last plane alone, so they equal the
+            # full face sum's) and handed to the comm's exchange, which
+            # travels (on NCCL's stream, or on gloo's threads from host
+            # buffers) while the apply runs; then the face sum and the
+            # exchanged planes' adds. Like the JAX package's ragged
+            # variant it applies the whole slab after the two layers (a
+            # layer apply is element-local, so the values are the same
+            # either way): bitwise equal to operator then dssum.
+            e = self._edges
+
+            def op_dssum(z, apply_mask=True):
+                z_lo = z[:, :n].contiguous()
+                z_hi = _planes_from(z, e["hi0"], n).contiguous()
+                plane_lo = lattice_face_sum_3d(sem.stiffness_apply_lattice(
+                    z_lo, e["geom_lo"], a.D, self.dim), n)[:, 0]
+                plane_hi = lattice_face_sum_3d(sem.stiffness_apply_lattice(
+                    z_hi, e["geom_hi"], a.D, self.dim), n)[:, -1]
+                ex = self.comm.slab_exchange_start(plane_lo, plane_hi)
+                q = operator(z)
+                U = self.comm.slab_exchange_finish(
+                    lattice_face_sum_3d(q, n), ex, top)
+                if apply_mask:
+                    U.mul_(a.mask)
+                return q, U
+        elif fused:
+            # one process holding every shard has no exchange to hide:
+            # the full apply and the dssum, the route the JAX package
+            # takes where it builds its fused closure (FCG's numbers
+            # depend on the route)
             def op_dssum(z, apply_mask=True):
                 q = operator(z)
                 return q, dssum(q, apply_mask=apply_mask)
@@ -292,10 +356,11 @@ class Domain:
     # ---- fields and manufactured solutions ----
 
     def points_shape(self):
-        """Host-field shape: (points,) on one shard, (P, points) else."""
+        """Host-field shape: (points,) on one shard, (owned shards,
+        points) else."""
         st = self.sharded
         if self.spmd:
-            return (st.num_shards, st.points_per_shard)
+            return (self.num_owned, st.points_per_shard)
         return (st.points_per_shard,)
 
     @property
@@ -307,11 +372,12 @@ class Domain:
         return self.lattice_shape
 
     def to_device_field(self, host_field: np.ndarray):
-        """Element-ordered host values, (P, E*npe) or flat -> the device
-        field, (Mz, My, Mx) on one shard and (P, Mz, My, Mx) else. Pad
-        points are zeroed: device fields are zero at padding."""
+        """Element-ordered host values of the owned shards, (owned,
+        E*npe) or flat -> the device field, (Mz, My, Mx) on one shard and
+        (owned, Mz, My, Mx) else. Pad points are zeroed: device fields are
+        zero at padding."""
         st = self.sharded
-        vals = np.asarray(host_field).reshape(st.num_shards, -1)
+        vals = np.asarray(host_field).reshape(self.num_owned, -1)
         if self.spmd:
             vals = np.where(np.repeat(st.elem_valid, st.num_points_per_elem,
                                       axis=1), vals, 0.0)
@@ -320,11 +386,12 @@ class Domain:
         return self.shard_put(vals, self.dtype)
 
     def from_device_field(self, u) -> np.ndarray:
-        """Device field -> element-ordered host values, shape (P, E*npe)."""
+        """Device field -> element-ordered host values of the owned
+        shards, shape (owned, E*npe)."""
         vals = u.detach()
         if vals.dtype in (torch.bfloat16, torch.float16):
             vals = vals.float()
-        P = self.sharded.num_shards
+        P = self.num_owned
         vals = vals.cpu().numpy().reshape((P,) + self.field_shape)
         if self.lattice_shape is None:
             return vals
@@ -364,10 +431,10 @@ class Domain:
         npe = st.num_points_per_elem
         rng = np.random.default_rng(seed)
         flat = rng.random(st.num_total_elements * npe)
-        out = np.zeros((st.num_shards, st.elems_per_shard * npe))
-        for p in range(st.num_shards):
+        out = np.zeros((self.num_owned, st.elems_per_shard * npe))
+        for k, p in enumerate(self.owned):
             lo, hi = st.elem_offsets[p], st.elem_offsets[p + 1]
-            out[p, :(hi - lo) * npe] = flat[lo * npe:hi * npe]
+            out[k, :(hi - lo) * npe] = flat[lo * npe:hi * npe]
         return out.reshape(-1)
 
     def initial_function(self, function_id: int = 0, seed: int = 0):

@@ -10,9 +10,11 @@ the device. It launches nothing itself.
 
 Fields here are GLOBAL element-ordered flat host arrays
 (num_elements * npe,); ``owned_to_global`` / ``global_to_owned`` map them
-from and to the (P, E*npe) per-shard layout of ``Domain.from_device_field``
-/ ``to_device_field`` (pad slots zero), over every shard of the one
-process.
+from and to the (owned shards, E*npe) per-shard layout of
+``Domain.from_device_field`` / ``to_device_field`` (pad slots zero). In a
+multi-process run (``ProcessComm``) every process holds the whole global
+field: each fills its own shards' slots and one all_reduce of the f64
+host vector sums the processes' parts.
 """
 
 from __future__ import annotations
@@ -28,30 +30,33 @@ __all__ = ["HostOperator", "host_refine_solve", "HostRefinedResult",
 
 
 def owned_to_global(dom, vals: np.ndarray) -> np.ndarray:
-    """Per-shard padded host layout (P, elems_per_shard*npe) -> GLOBAL
-    element-ordered flat field (num_total_elements*npe,); pad-element
-    slots are dropped through the partition's element offsets."""
+    """Owned-shard padded host layout (owned, elems_per_shard*npe) ->
+    GLOBAL element-ordered flat field (num_total_elements*npe,); pad
+    slots are dropped through the partition's element offsets. Across
+    processes the global field is the sum of every process's part."""
     st = dom.sharded
     npe = st.num_points_per_elem
-    vals = np.asarray(vals, dtype=np.float64).reshape(st.num_shards, -1)
+    vals = np.asarray(vals, dtype=np.float64).reshape(dom.num_owned, -1)
     g = np.zeros(st.num_total_elements * npe)
-    for p in range(st.num_shards):
+    for k, p in enumerate(dom.owned):
         lo, hi = st.elem_offsets[p], st.elem_offsets[p + 1]
-        g[lo * npe:hi * npe] = vals[p, :(hi - lo) * npe]
+        g[lo * npe:hi * npe] = vals[k, :(hi - lo) * npe]
+    if dom.multiprocess:
+        g = dom.comm.sum_host(g)
     return g
 
 
 def global_to_owned(dom, vals: np.ndarray) -> np.ndarray:
-    """GLOBAL element-ordered flat field -> per-shard padded host layout
-    for Domain.to_device_field (pad slots zero)."""
+    """GLOBAL element-ordered flat field -> the owned shards' padded host
+    layout for Domain.to_device_field (pad slots zero)."""
     st = dom.sharded
     npe = st.num_points_per_elem
     vals = np.asarray(vals).reshape(-1)
-    out = np.zeros((st.num_shards, st.elems_per_shard * npe),
+    out = np.zeros((dom.num_owned, st.elems_per_shard * npe),
                    dtype=vals.dtype)
-    for p in range(st.num_shards):
+    for k, p in enumerate(dom.owned):
         lo, hi = st.elem_offsets[p], st.elem_offsets[p + 1]
-        out[p, :(hi - lo) * npe] = vals[lo * npe:hi * npe]
+        out[k, :(hi - lo) * npe] = vals[lo * npe:hi * npe]
     return out
 
 

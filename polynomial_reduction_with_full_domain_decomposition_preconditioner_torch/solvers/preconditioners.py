@@ -74,7 +74,8 @@ def jacobi(domain) -> Preconditioner:
 
 def _level_arrays(domain, orders, mesh_builder):
     """Lattice-layout device tensors for each coarse order on the same
-    element grid, partitioned over the domain's shards: geometry and D in
+    element grid, partitioned over the domain's shards (this process's
+    own, ``domain.owned``): geometry and D in
     the domain's dtype, mask and inverse multiplicity stored as the
     Domain stores its own."""
     grid = domain.local_grid
@@ -83,7 +84,7 @@ def _level_arrays(domain, orders, mesh_builder):
     levels = []
     for N_c in orders:
         sd = partition_mesh(mesh_builder(N_c), domain.sharded.num_shards,
-                            structured=True)
+                            structured=True, owned=domain.owned)
         if sd.structured.local_grid() != grid:
             raise ValueError(
                 f"mesh_builder({N_c}) has element grid "

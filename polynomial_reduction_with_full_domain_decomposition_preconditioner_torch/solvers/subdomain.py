@@ -528,10 +528,13 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
                       num_iterations, inner, inner_solver, num_vcycles,
                       cheby_order, ptype, max_coarse, far_coarsen,
                       fine_mesh, chain_cache, vertex_iters, chain_info):
-    """composite_dd on P > 1 slab shards of one process (the JAX package's
+    """composite_dd on P > 1 slab shards (the JAX package's
     ``composite_dd`` under ``shard_map``, subdomain.py:300-1210): every
     tensor carries the leading shard axis, every collective is the
-    domain's comm."""
+    domain's comm. A process of a multi-process run builds the host
+    tables of its own shards only (``domain.owned``, the leading axis of
+    every stack); what indexes the global shards (the all-gathered far
+    field's rows, the physical layers) stays global."""
     sd = domain.sharded
     comm = domain.comm
     dim = domain.dim
@@ -539,6 +542,8 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
     dtype = ptype if ptype is not None else domain.dtype
     device = domain.device
     Pn = sd.num_shards
+    owned = domain.owned                     # this process's shards
+    Po = domain.num_owned
     elem_shape = sd.structured.elem_shape
     m_last = elem_shape[-1]
     counts = sd.structured.layer_counts      # real layers per shard
@@ -647,7 +652,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
     # interface gi -> gi+1 is physical unless it sits on the global z
     # boundary (the one wrap-around interface of each shard's cyclic stack)
     adj = np.array([[0.0 if phys_lists[p][(gi + 1) % G][0] == 0 else 1.0
-                     for gi in range(G)] for p in range(Pn)])
+                     for gi in range(G)] for p in owned])
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a),
@@ -657,7 +662,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
     for gi, g in enumerate(groups):
         mesh_o = mesh_far if g.zcoarse > 1 else mesh_by_order[g.order]
         geoms, masks, wts = [], [], []
-        for p in range(Pn):
+        for p in owned:
             phys = phys_lists[p][gi]
             if g.zcoarse > 1:
                 phys = [q // g.zcoarse if q >= 0 else -1 for q in phys]
@@ -677,7 +682,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             "n": g.order + 1,
         })
     adj_t = put(adj)
-    adj_g = [adj_t[:, gi].reshape(Pn, 1, 1) for gi in range(G)]
+    adj_g = [adj_t[:, gi].reshape(Po, 1, 1) for gi in range(G)]
 
     # interface (coarse -> fine, 1-D) and cascade matrices
     Jmats = {}
@@ -700,11 +705,11 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
     dyn_top = {}
     below_rows = {}
     if ragged:
-        dyn_top[0] = rows_t([counts[p] * n_lvl[0] - 1 for p in range(Pn)])
+        dyn_top[0] = rows_t([counts[p] * n_lvl[0] - 1 for p in owned])
         if far_idxs:
             dyn_top[far_idxs[0]] = rows_t(
                 [(m_last - counts[p] - 2 * V * L) * n_c - 1
-                 for p in range(Pn)])
+                 for p in owned])
         for gi in dyn_top:
             if groups[gi].order != groups[(gi + 1) % G].order:
                 raise AssertionError("a dynamic-plane group must meet a "
@@ -713,7 +718,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             nl = n_lvl[l]
             below_rows[l] = rows_t([[(counts[p] - (l + 1) * V) * nl + k
                                      for k in range(V * nl)]
-                                    for p in range(Pn)])
+                                    for p in owned])
 
     # far field: each shard's rows of the all-gathered coarsest level (P S
     # n_c rows, shard-major), rolled to its cyclic frame and sliced per far
@@ -729,17 +734,17 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             R = fg.layers * n_c
             far_rows.append(rows_t([[phys_rows[((bases[p] + counts[p] + V * L)
                                                 * n_c + k) % M]
-                                     for k in range(R)] for p in range(Pn)]))
+                                     for k in range(R)] for p in owned]))
             far_zmask = put([[1.0 if k < (m_last - counts[p] - 2 * V * L)
                               * n_c else 0.0 for k in range(R)]
-                             for p in range(Pn)]).reshape(Pn, R, 1, 1)
+                             for p in owned]).reshape(Po, R, 1, 1)
         else:
             for fi in far_idxs:
                 fg = groups[fi]
                 far_rows.append(rows_t(
                     [[(p * S * n_c + fg.start_pos * n_c + k) % M
                       for k in range(fg.fine_extent * n_c)]
-                     for p in range(Pn)]))
+                     for p in owned]))
     Rzfar = None
     if Fz > 1:
         # z restriction fine far -> merged far layers (order-1 linear
@@ -849,7 +854,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
         for l in range(L - 1, -1, -1):
             nl = n_lvl[l]
             if ragged:
-                idx = below_rows[l].view(Pn, -1, 1, 1).expand(
+                idx = below_rows[l].view(Po, -1, 1, 1).expand(
                     -1, -1, *r_lvl[l].shape[2:])
                 block = torch.gather(r_lvl[l], 1, idx)
             else:
@@ -865,7 +870,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
         out = []
         for fi, rows in zip(far_idxs, far_rows):
             far = full.index_select(0, rows.reshape(-1)).view(
-                (Pn, -1) + tuple(full.shape[1:]))
+                (Po, -1) + tuple(full.shape[1:]))
             if far_zmask is not None:
                 far = far * far_zmask
             if groups[fi].zcoarse > 1:
@@ -912,13 +917,13 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
                     F[e * n_o:(e + 1) * n_o, e + 1] = t
                 facs.append(put(F))
             P1p.append(facs)
-            mats = np.zeros((Pn, g.layers * n_o, m_last + 1))
-            for p in range(Pn):
+            mats = np.zeros((Po, g.layers * n_o, m_last + 1))
+            for j, p in enumerate(owned):
                 for k, q in enumerate(phys_lists[p][gi]):
                     if q < 0:
                         continue
-                    mats[p, k * n_o:(k + 1) * n_o, q] = 1.0 - t
-                    mats[p, k * n_o:(k + 1) * n_o, q + g.zcoarse] = t
+                    mats[j, k * n_o:(k + 1) * n_o, q] = 1.0 - t
+                    mats[j, k * n_o:(k + 1) * n_o, q + g.zcoarse] = t
             P1z.append(put(mats))
         comp_invd = comp_inv_diag()
 
@@ -945,7 +950,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             lam = torch.sqrt(num / den)
             scale = 1.0 / torch.clamp(torch.sqrt(num), min=1e-30)
             x = [krylov._bc(scale, yl) * yl for yl in y]
-        lmax0 = (lam * 1.1).reshape(Pn, 1, 1, 1)
+        lmax0 = (lam * 1.1).reshape(Po, 1, 1, 1)
         amg = {"chain": chain, "P1p": P1p, "P1z": P1z, "lmax0": lmax0}
 
         def restrict_to_vertex(parts):
@@ -953,12 +958,12 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             for gi in range(G):
                 U = parts[gi] * gdata[gi]["weight"]
                 Vt = torch.bmm(P1z[gi].transpose(1, 2),
-                               U.reshape(Pn, U.shape[1], -1))
-                Vt = Vt.reshape((Pn, m_last + 1) + tuple(U.shape[2:]))
+                               U.reshape(Po, U.shape[1], -1))
+                Vt = Vt.reshape((Po, m_last + 1) + tuple(U.shape[2:]))
                 for d, F in enumerate(P1p[gi]):
                     Vt = axis_contract(F.T, Vt, d + 2)
                 acc = Vt if acc is None else acc + Vt
-            return acc.reshape(Pn, -1).to(chain_dtype) * chain["masks"][0]
+            return acc.reshape(Po, -1).to(chain_dtype) * chain["masks"][0]
 
         def vertex_solve(wv):
             """One chain V-cycle per shard, or vertex_iters fixed PCG
@@ -980,11 +985,11 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             return xv
 
         def prolong_from_vertex(v):
-            V0 = v.to(dtype).reshape(Pn, m_last + 1, -1)
+            V0 = v.to(dtype).reshape(Po, m_last + 1, -1)
             outs = []
             for gi in range(G):
                 Vt = torch.bmm(P1z[gi], V0).reshape(
-                    (Pn, P1z[gi].shape[1]) + vert_shape[1:])
+                    (Po, P1z[gi].shape[1]) + vert_shape[1:])
                 for d, F in enumerate(P1p[gi]):
                     Vt = axis_contract(F, Vt, d + 2)
                 outs.append(Vt * gdata[gi]["mask"])
@@ -1001,16 +1006,21 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             return x
     elif inner == "fem-amg":
         # one assembled hierarchy per shard (ragged: pad slots are zero Q
-        # rows, DOF counts padded to the largest), packed block-diagonal
+        # rows, DOF counts padded to the largest), packed block-diagonal.
+        # A multi-process run builds every shard's (the padded sizes are
+        # global) and packs its own, as the JAX package does
+        shard_set = list(range(Pn)) if domain.multiprocess else list(owned)
         hiers = [build_composite_hierarchy(
             groups, mesh_by_order, plane_shape, m_last, bases[p], dim,
             max_coarse=max_coarse,
             phys_by_group=phys_lists[p] if ragged else None)
-            for p in range(Pn)]
+            for p in shard_set]
         if ragged:
             pad_hier_dofs(hiers)
         t0 = time.perf_counter()
-        amg = pack_hierarchies(hiers, dtype=dtype, device=device)
+        amg = pack_hierarchies(hiers, dtype=dtype, device=device,
+                               stacked=True,
+                               select=[shard_set.index(p) for p in owned])
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         setup_seconds = {k: sum(h.setup_seconds[k] for h in hiers)
@@ -1018,12 +1028,12 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
         setup_seconds["pack"] = time.perf_counter() - t0
         amg_apply = composite_preconditioner(amg, cheby_order=cheby_order,
                                              num_cycles=num_vcycles)
-        comp_mask = torch.cat([gd["mask"].reshape(Pn, -1) for gd in gdata],
+        comp_mask = torch.cat([gd["mask"].reshape(Po, -1) for gd in gdata],
                               dim=1)
         sizes = [gd["mask"][0].numel() for gd in gdata]
 
         def inner_precond(rr):
-            flat = torch.cat([g.reshape(Pn, -1) for g in rr], dim=1)
+            flat = torch.cat([g.reshape(Po, -1) for g in rr], dim=1)
             out = amg_apply(flat) * comp_mask
             parts, off = [], 0
             for g, sz in zip(rr, sizes):

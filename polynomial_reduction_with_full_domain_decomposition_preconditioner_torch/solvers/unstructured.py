@@ -68,10 +68,11 @@ from . import krylov
 __all__ = ["composite_dd_unstructured"]
 
 
-def _class_setup(mesh_o, elems):
+def _class_setup(mesh_o, elems, with_geom=True):
     """Node plan for one order class of one shard: elems (with -1 pads)
-    -> dense local node ids (NN = trash), geometry, node mask and the
-    sorted global ids (a local id is a searchsorted)."""
+    -> dense local node ids (NN = trash), geometry (``with_geom``: the
+    shards a process owns), node mask and the sorted global ids (a local
+    id is a searchsorted)."""
     npe = mesh_o.num_points_per_elem
     Ec = elems.shape[0]
     real = elems >= 0
@@ -86,8 +87,10 @@ def _class_setup(mesh_o, elems):
     NN = uniq.size
     gids = np.full((Ec, npe), NN, dtype=np.int64)
     gids[real] = rank[sel].reshape(-1, npe)
-    geom = np.zeros((Ec, npe, mesh_o.num_geom))
-    geom[real] = mesh_o.geom[safe[real]]
+    geom = None
+    if with_geom:
+        geom = np.zeros((Ec, npe, mesh_o.num_geom))
+        geom[real] = mesh_o.geom[safe[real]]
     nmask = np.ones(NN + 1)
     nmask[NN] = 0.0
     nmask[gids[real].ravel()] = mesh_o.dirichlet_mask[safe[real]].ravel()
@@ -119,10 +122,10 @@ _SETUP_FORMAT = "torch-unstructured-composite-1"
 
 
 def _setup_key(sd, orders, subdomain_overlap, superdomain_overlap,
-               far_compress, max_coarse, dtype) -> dict:
+               far_compress, max_coarse, dtype, owned) -> dict:
     """What shapes a host setup: a cached one is used only where its key
     equals this one (the mesh by a checksum of the partition's node ids
-    and coordinates)."""
+    and coordinates; the payload's stacks hold the ``owned`` shards)."""
     crc = zlib.crc32(np.ascontiguousarray(sd.glo_num).view(np.uint8))
     crc = zlib.crc32(np.ascontiguousarray(sd.coords).view(np.uint8), crc)
     return {"orders": [int(o) for o in orders],
@@ -134,6 +137,7 @@ def _setup_key(sd, orders, subdomain_overlap, superdomain_overlap,
             "far_compress": (far_compress if isinstance(far_compress, str)
                              else bool(far_compress)),
             "max_coarse": int(max_coarse), "ptype": str(dtype),
+            "owned": [int(p) for p in owned],
             "mesh_crc32": int(crc)}
 
 
@@ -157,13 +161,22 @@ def _load_setup(path: str, key: dict) -> dict:
 
 
 def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
-                far_compress, fine_mesh, inner, max_coarse, lap, seconds):
+                far_compress, fine_mesh, inner, max_coarse, lap, seconds,
+                owned, build_all):
     """The composite's host setup (numpy / scipy): regions, class node
     plans, slave constraints, the compressed far field, the face plans
     and, for inner="fem-amg", the shards' FEM hierarchies. Returns what
     ``setup_cache`` keeps (numpy arrays, scipy CSR, python scalars) and
     the order-1 mesh. ``lap(stage)`` records a stage's seconds in
-    ``seconds``."""
+    ``seconds``.
+
+    The index pass (regions, class sizes, constraint sizes, superdomain
+    shapes) runs over every shard, since its maxima are the padded shapes
+    that every process shares; geometry, face plans and the stacked
+    arrays are made for the ``owned`` shards only, in their order (the
+    JAX package's local-only setup). ``build_all``: the fem-amg
+    hierarchies of every shard, padded together, of which the owned are
+    kept (a multi-process run)."""
     dim = sd.dim
     N = orders[0]
     Pn = sd.num_shards
@@ -219,7 +232,10 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
     lap("regions")
 
     # ---- per-class node plans + slave constraints ----
-    cls_setups = [[_class_setup(mesh_by_order[orders[c]], class_elems[c][p])
+    owned_set = set(owned)
+    Po = len(owned)
+    cls_setups = [[_class_setup(mesh_by_order[orders[c]], class_elems[c][p],
+                                with_geom=p in owned_set)
                    for p in range(Pn)] for c in range(C)]
     nv = mesh1.num_nodes
     classes = []
@@ -227,22 +243,22 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
         mesh_o = mesh_by_order[orders[c]]
         per = cls_setups[c]
         Ec, npe_c = per[0]["E"], per[0]["npe"]
-        src = np.zeros((Pn, Ec), dtype=np.int64)
-        valid = np.zeros((Pn, Ec))
-        vids = np.full((Pn, Ec, 2 ** dim), nv, dtype=np.int64)
-        pw = np.zeros((Pn, Ec, npe_c))
-        for p in range(Pn):
+        src = np.zeros((Po, Ec), dtype=np.int64)
+        valid = np.zeros((Po, Ec))
+        vids = np.full((Po, Ec, 2 ** dim), nv, dtype=np.int64)
+        pw = np.zeros((Po, Ec, npe_c))
+        for k, p in enumerate(owned):
             e = class_elems[c][p]
             real = e >= 0
             safe = np.where(real, e, 0)
-            src[p] = np.where(real, owner_of[safe] * E_pad + slot_of[safe], 0)
-            valid[p] = real
-            vids[p][real] = verts[safe][real]
-            pw[p] = (1.0 / mesh_o.node_degree[safe]) * real[:, None]
+            src[k] = np.where(real, owner_of[safe] * E_pad + slot_of[safe], 0)
+            valid[k] = real
+            vids[k][real] = verts[safe][real]
+            pw[k] = (1.0 / mesh_o.node_degree[safe]) * real[:, None]
         classes.append({
             "order": orders[c], "n": orders[c] + 1, "E": Ec, "npe": npe_c,
             "NN": max(s["NN"] for s in per),
-            "geom": np.stack([s["geom"] for s in per]),
+            "geom": np.stack([per[p]["geom"] for p in owned]),
             "src": src, "valid": valid, "vids": vids, "pw": pw})
 
     per_slv_ids, per_slv_cols, per_slv_wts, slaves = {}, {}, {}, []
@@ -267,14 +283,14 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
         per_slv_ids[c], per_slv_cols[c] = per_ids, per_cols
         per_slv_wts[c] = per_wts
         Ns = max(a.size for a in per_ids)
-        ids_a = np.full((Pn, Ns), classes[c]["NN"], dtype=np.int64)
-        cols_a = np.full((Pn, Ns, K), classes[c + 1]["NN"], dtype=np.int64)
-        wts_a = np.zeros((Pn, Ns, K))
-        for p in range(Pn):
+        ids_a = np.full((Po, Ns), classes[c]["NN"], dtype=np.int64)
+        cols_a = np.full((Po, Ns, K), classes[c + 1]["NN"], dtype=np.int64)
+        wts_a = np.zeros((Po, Ns, K))
+        for j, p in enumerate(owned):
             k = per_ids[p].size
-            ids_a[p, :k] = per_ids[p]
-            cols_a[p, :k] = per_cols[p]
-            wts_a[p, :k] = per_wts[p]
+            ids_a[j, :k] = per_ids[p]
+            cols_a[j, :k] = per_cols[p]
+            wts_a[j, :k] = per_wts[p]
         slaves.append({"ids": ids_a, "cols": cols_a, "wts": wts_a})
     lap("classes_constraints")
 
@@ -326,13 +342,13 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
         Ef = max(d["far"].size for d in per_sup)
         Ni = max(len(d["iface"]) for d in per_sup)
         A_pad, P_pad = [], []
-        mask_a, wrest_a, diag_a = (np.zeros((Pn, ns)) for _ in range(3))
-        ifc_a = np.full((Pn, Ni), classes[C - 1]["NN"], dtype=np.int64)
-        ifs_a = np.full((Pn, Ni), ns, dtype=np.int64)
-        sup_src = np.zeros((Pn, Ef), dtype=np.int64)
-        sup_valid = np.zeros((Pn, Ef))
-        sup_vids = np.full((Pn, Ef, 2 ** dim), nv, dtype=np.int64)
-        for p, d in enumerate(per_sup):
+        mask_a, wrest_a, diag_a = (np.zeros((Po, ns)) for _ in range(3))
+        ifc_a = np.full((Po, Ni), classes[C - 1]["NN"], dtype=np.int64)
+        ifs_a = np.full((Po, Ni), ns, dtype=np.int64)
+        sup_src = np.zeros((Po, Ef), dtype=np.int64)
+        sup_valid = np.zeros((Po, Ef))
+        sup_vids = np.full((Po, Ef, 2 ** dim), nv, dtype=np.int64)
+        for p, d in enumerate(per_sup[q] for q in owned):
             A = sp.csr_matrix(d["A"])
             A.resize((ns, ns))
             A_pad.append(A)
@@ -359,7 +375,7 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
     for c in range(C):
         cl = classes[c]
         plans = []
-        for p in range(Pn):
+        for p in owned:
             s = cls_setups[c][p]
             gl = s["gids"].reshape(s["E"], s["npe"])
             gl = np.where(gl == s["NN"], -1, gl)
@@ -395,42 +411,42 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
     # slave / interface indices in touched-compact numbering
     for c in range(C - 1):
         s = slaves[c]
-        for p in range(Pn):
+        for j, p in enumerate(owned):
             mf, mc = tmap_of(c, p), tmap_of(c + 1, p)
             nn_f = cls_setups[c][p]["NN"]
             nn_c = cls_setups[c + 1][p]["NN"]
-            s["ids"][p] = np.where(s["ids"][p] < nn_f,
-                                   mf[np.minimum(s["ids"][p], nn_f)],
+            s["ids"][j] = np.where(s["ids"][j] < nn_f,
+                                   mf[np.minimum(s["ids"][j], nn_f)],
                                    cls_NT[c])
-            s["cols"][p] = np.where(s["cols"][p] < nn_c,
-                                    mc[np.minimum(s["cols"][p], nn_c)],
+            s["cols"][j] = np.where(s["cols"][j] < nn_c,
+                                    mc[np.minimum(s["cols"][j], nn_c)],
                                     cls_NT[c + 1])
     if sup is not None:
-        for p in range(Pn):
+        for j, p in enumerate(owned):
             mt = tmap_of(C - 1, p)
             nn_t = cls_setups[C - 1][p]["NN"]
-            sup["ifc"][p] = np.where(sup["ifc"][p] < nn_t,
-                                     mt[np.minimum(sup["ifc"][p], nn_t)],
+            sup["ifc"][j] = np.where(sup["ifc"][j] < nn_t,
+                                     mt[np.minimum(sup["ifc"][j], nn_t)],
                                      cls_NT[C - 1])
     for c in range(C):
         cl = classes[c]
         NT, T_pts = cls_NT[c], cl["E"] * cl["npe"]
-        trep = np.zeros((Pn, NT + 1), dtype=np.int64)
+        trep = np.zeros((Po, NT + 1), dtype=np.int64)
         tpts, tids = [], []
-        pmask = np.zeros((Pn, T_pts))
-        for p in range(Pn):
+        pmask = np.zeros((Po, T_pts))
+        for j, p in enumerate(owned):
             tm = tmap_of(c, p)
             gl = cls_setups[c][p]["gids"]
             sel = np.flatnonzero(np.isin(gl, cls_T[c][p]))
-            tpts.append(p * T_pts + sel)
-            tids.append(p * (NT + 1) + tm[gl[sel]])
+            tpts.append(j * T_pts + sel)
+            tids.append(j * (NT + 1) + tm[gl[sel]])
             # a representative point per touched node: the first (the
             # trash slot NT reads point 0; every use of it is masked)
             first = np.zeros(NT + 1, dtype=np.int64)
             first[tm[gl[sel]][::-1]] = sel[::-1]
-            trep[p] = p * T_pts + first
+            trep[j] = j * T_pts + first
             s = cls_setups[c][p]
-            pmask[p] = s["nmask"][np.minimum(s["gids"], s["NN"])]
+            pmask[j] = s["nmask"][np.minimum(s["gids"], s["NN"])]
         cl.update(NT=NT, trep=trep.reshape(-1), tpts=np.concatenate(tpts),
                   tids=np.concatenate(tids), pmask=pmask)
     lap("face_plans")
@@ -443,7 +459,8 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
         # the class-local constraints; then padded to equal shapes
         fem_shards = []
         fem_seconds = {}
-        for p in range(Pn):
+        shard_set = list(range(Pn)) if build_all else list(owned)
+        for p in shard_set:
             slv_p = [(per_slv_ids[c][p], per_slv_cols[c][p],
                       per_slv_wts[c][p]) for c in range(C - 1)]
             sup_p = None
@@ -456,6 +473,7 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
         lap("fem_hierarchy")
         fem = pad_fem_shards(fem_shards,
                              ns_pad=sup["ns"] if sup is not None else 0)
+        fem = [fem[shard_set.index(p)] for p in owned]
         lap("fem_pad")
         seconds.update({f"fem_{k}": v for k, v in fem_seconds.items()})
     regions = [{"own": int(o.size), "rings": [int(r.size) for r in rings],
@@ -496,7 +514,9 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
     been written for the same mesh, partition, orders, overlaps,
     far_compress, max_coarse and ptype, else this raises. A file without
     the fem hierarchies counts as missing for inner="fem-amg". After a
-    fresh setup the file is written."""
+    fresh setup the file is written. A process of a multi-process run
+    keeps its own payload, of its own shards, at the path with
+    ``_pp{rank}of{processes}_o{first}-{last}`` before the extension."""
     if inner not in ("amg", "fem-amg", "jacobi", "none"):
         raise ValueError(f"unstructured composite inner={inner!r} "
                          "(use 'amg', 'fem-amg', 'jacobi' or 'none')")
@@ -512,6 +532,8 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
     device = domain.device
     comm = domain.comm
     Pn = sd.num_shards
+    owned = list(domain.owned)             # this process's shards
+    Po = len(owned)
     E_pad = sd.elems_per_shard
     seconds = {}
     clock = [time.perf_counter()]
@@ -530,9 +552,14 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
 
     host = mesh1 = None
     key = None
+    if setup_cache is not None and domain.multiprocess:
+        # each process's payload stacks its own shards: its own file
+        root, ext = os.path.splitext(setup_cache)
+        setup_cache = (f"{root}_pp{comm.rank}of{comm.processes}"
+                       f"_o{owned[0]}-{owned[-1]}{ext}")
     if setup_cache is not None:
         key = _setup_key(sd, orders, subdomain_overlap, superdomain_overlap,
-                         far_compress, max_coarse, dtype)
+                         far_compress, max_coarse, dtype, owned)
         if os.path.exists(setup_cache):
             host = _load_setup(setup_cache, key)
             if inner == "fem-amg" and host["fem"] is None:
@@ -544,7 +571,8 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
     if fresh:
         host, mesh1 = _host_setup(sd, mesh_builder, orders, subdomain_overlap,
                                   superdomain_overlap, far_compress,
-                                  fine_mesh, inner, max_coarse, lap, seconds)
+                                  fine_mesh, inner, max_coarse, lap, seconds,
+                                  owned, domain.multiprocess)
     classes, slaves, sup, nv = (host["classes"], host["slaves"],
                                 host["sup"], host["nv"])
     cls_NT = [cl["NT"] for cl in classes]
@@ -556,7 +584,7 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
                                     device=device)
     cls_x = []
     for c, cl in enumerate(classes):
-        shp = (Pn, cl["E"], cl["npe"])
+        shp = (Po, cl["E"], cl["npe"])
         fb = cl["fb"]
         x = {
             "shape": shp,
@@ -570,26 +598,26 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             "trep": idx(cl["trep"]), "tpts": idx(cl["tpts"]),
             "tids": idx(cl["tids"]), "NT": cl["NT"],
             # corner vertex ids over the (P, nv + 1) vertex stack
-            "vids": idx(cl["vids"] + (nv + 1) * np.arange(Pn)[:, None, None]),
+            "vids": idx(cl["vids"] + (nv + 1) * np.arange(Po)[:, None, None]),
             "pw": put(cl["pw"]),
         }
         cls_x.append(x)
     slv_x = []
     for c, s in enumerate(slaves):
         NTf, NTc = cls_NT[c] + 1, cls_NT[c + 1] + 1
-        offs = np.arange(Pn)
+        offs = np.arange(Po)
         cols = s["cols"] + NTc * offs[:, None, None]
         slv_x.append({
             "ids": idx(s["ids"] + NTf * offs[:, None]),
             "cols": idx(cols), "wts": put(s["wts"]),
-            "collapse": ordered_sum_plan(cols, Pn * NTc, device),
+            "collapse": ordered_sum_plan(cols, Po * NTc, device),
         })
     Jlvl = [torch.as_tensor(interp_matrix(orders[i + 1] + 1, orders[i] + 1),
                             device=device).to(dtype) for i in range(L - 1)]
     sup_x = None
     if sup is not None:
         ns = sup["ns"]
-        offs = np.arange(Pn)
+        offs = np.arange(Po)
         block = lambda ms: csr_from_scipy(_block_diag_csr(ms), dtype=dtype,
                                           device=device)
         vids_flat = sup["vids"] + (nv + 1) * offs[:, None, None]
@@ -602,7 +630,7 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             "ifc": idx(sup["ifc"] + (cls_NT[C - 1] + 1) * offs[:, None]),
             "ifs": idx(sup["ifs"] + (ns + 1) * offs[:, None]),
             "src": idx(sup["src"]), "valid": put(sup["valid"][..., None]),
-            "vsum": ordered_sum_plan(vids_flat, Pn * (nv + 1), device),
+            "vsum": ordered_sum_plan(vids_flat, Po * (nv + 1), device),
             "ns": ns,
         }
     lap("device")
@@ -610,7 +638,7 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
     def spmv(mat, x):
         """A block-diagonal CsrMatrix over the shards on a (P, n[, 1])
         stack."""
-        return sparse_spmv(mat, x.reshape(-1)).view(Pn, -1, 1)
+        return sparse_spmv(mat, x.reshape(-1)).view(Po, -1, 1)
 
     def comp_operator(parts):
         out = [sem.stiffness_apply(U, cx["geom"], cx["D"], dim)
@@ -627,26 +655,26 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             cx = cls_x[c]
             if cx["shape"][1] == 0:          # an empty class
                 ys.append(parts[c])
-                wTs.append(parts[c].new_zeros(Pn * (cx["NT"] + 1)))
+                wTs.append(parts[c].new_zeros(Po * (cx["NT"] + 1)))
                 continue
             y = fd.face_assemble(parts[c], cx["fb"])
             ys.append(y)
             wTs.append(y.reshape(-1)[cx["trep"]])
         for c in range(C - 1):               # collapse fine -> coarse
             s = slv_x[c]
-            contrib = s["wts"] * wTs[c][s["ids"]].view(Pn, -1, 1)
+            contrib = s["wts"] * wTs[c][s["ids"]].view(Po, -1, 1)
             wTs[c + 1] = ordered_scatter_add(wTs[c + 1], contrib.reshape(-1),
                                              s["collapse"])
         w_sup = None
         if sup_x is not None:
             # the superdomain's kept-fine vertices and the coarsest class
             # both take the summed value at a shared vertex
-            w_sup = torch.cat([parts[C].reshape(Pn, -1),
-                               parts[C].new_zeros(Pn, 1)], 1).reshape(-1)
+            w_sup = torch.cat([parts[C].reshape(Po, -1),
+                               parts[C].new_zeros(Po, 1)], 1).reshape(-1)
             shared = wTs[C - 1][sup_x["ifc"]] + w_sup[sup_x["ifs"]]
             wTs[C - 1] = wTs[C - 1].index_copy(0, sup_x["ifc"], shared)
             w_sup = w_sup.index_copy(0, sup_x["ifs"], shared)
-            w_sup = w_sup.view(Pn, -1)[:, :-1].reshape(Pn, -1, 1)
+            w_sup = w_sup.view(Po, -1)[:, :-1].reshape(Po, -1, 1)
         for c in range(C - 2, -1, -1):       # prolong coarse -> fine
             s = slv_x[c]
             vals = (s["wts"] * wTs[c + 1][s["cols"]].view(s["wts"].shape)
@@ -668,7 +696,7 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
 
     def tree_cascade(r):
         # restriction cascade on the own elements, order N -> ... -> 1
-        r_lvl = [r.reshape(Pn, E_pad, -1)]
+        r_lvl = [r.reshape(Po, E_pad, -1)]
         for Jl in Jlvl:
             r_lvl.append(interp.restrict(r_lvl[-1], Jl, dim))
         return r_lvl
@@ -686,10 +714,10 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             # the far elements' restricted residual, vertex-assembled and
             # projected with P^T
             sel = (blocks[C - 1].index_select(0, sup_x["src"])
-                   .view(Pn, -1, 2 ** dim) * sup_x["valid"])
-            w_v = ordered_scatter_add(sel.new_zeros(Pn * (nv + 1)),
+                   .view(Po, -1, 2 ** dim) * sup_x["valid"])
+            w_v = ordered_scatter_add(sel.new_zeros(Po * (nv + 1)),
                                       sel.reshape(-1), sup_x["vsum"])
-            parts.append(spmv(sup_x["Pt"], w_v.view(Pn, -1)[:, :nv]))
+            parts.append(spmv(sup_x["Pt"], w_v.view(Po, -1)[:, :nv]))
         return parts
 
     def comp_inv_diag():
@@ -719,18 +747,18 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             agg_info = aggregation_chain(A_v, vmask, max_coarse=max_coarse)
             lap("aggregation")
         chain = pack_level_chain(agg_info, dtype=dtype, device=device,
-                                 shards=Pn)
+                                 shards=Po)
         vmask_t = put(vmask)
         B = [put(_blend_matrix(cl["n"], dim)) for cl in classes]
         vplans = [ordered_sum_plan(
-            cl["vids"] + (nv + 1) * np.arange(Pn)[:, None, None],
-            Pn * (nv + 1), device) for cl in classes]
+            cl["vids"] + (nv + 1) * np.arange(Po)[:, None, None],
+            Po * (nv + 1), device) for cl in classes]
         comp_invd = comp_inv_diag()
 
         if host.get("lmax0") is not None:
             # kept in f64, which holds every ptype's value exactly
             lmax0 = torch.as_tensor(np.asarray(host["lmax0"], np.float64),
-                                    device=device).to(dtype).reshape(Pn, 1, 1)
+                                    device=device).to(dtype).reshape(Po, 1, 1)
         else:
             # Chebyshev bound per shard: lambda_max(D^-1 S A) of its
             # composite by 20 power-iteration steps with rank-local dots,
@@ -750,28 +778,28 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
                 lam = torch.sqrt(num / den)
                 scale = 1.0 / torch.clamp(torch.sqrt(num), min=1e-30)
                 x = [krylov._bc(scale, yl) * yl for yl in y]
-            lmax0 = (lam * 1.1).reshape(Pn, 1, 1)
+            lmax0 = (lam * 1.1).reshape(Po, 1, 1)
         amg = {"chain": chain, "vmask": vmask_t, "B": B, "lmax0": lmax0}
 
         def restrict_to_vertex(parts):
-            acc = parts[0].new_zeros(Pn * (nv + 1))
+            acc = parts[0].new_zeros(Po * (nv + 1))
             for c, cx in enumerate(cls_x):
                 contrib = torch.matmul(cx["pw"] * parts[c], B[c])
                 acc = ordered_scatter_add(acc, contrib.reshape(-1),
                                           vplans[c])
-            acc = acc.view(Pn, -1)[:, :nv]
+            acc = acc.view(Po, -1)[:, :nv]
             if sup_x is not None:
                 acc = acc + spmv(sup_x["P"], parts[C] * sup_x["wrest"]
-                                 ).view(Pn, -1)
+                                 ).view(Po, -1)
             return acc * vmask_t
 
         def prolong_from_vertex(v):
-            vp = torch.cat([v * vmask_t, v.new_zeros(Pn, 1)], 1).reshape(-1)
+            vp = torch.cat([v * vmask_t, v.new_zeros(Po, 1)], 1).reshape(-1)
             outs = [torch.matmul(vp[cx["vids"]].view(
                 cx["shape"][:2] + (2 ** dim,)), B[c].T)
                 for c, cx in enumerate(cls_x)]
             if sup_x is not None:
-                outs.append(spmv(sup_x["Pt"], vp.view(Pn, -1)[:, :nv]))
+                outs.append(spmv(sup_x["Pt"], vp.view(Po, -1)[:, :nv]))
             return [o * m for o, m in zip(outs, comp_mask)]
 
         def inner_precond(rr):
@@ -795,7 +823,8 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
                            lmaxs=s["chain"]["lmaxs"],
                            coarse_inv=s["chain"]["coarse_inv"],
                            Q=s["Q"], dof_mask=s["dof_mask"])
-             for s in host["fem"]], dtype, device=device)
+             for s in host["fem"]], dtype, device=device,
+            stacked=domain.spmd)
         fem_apply = composite_preconditioner(
             fem_tree, cheby_order=cheby_order, num_cycles=num_vcycles)
         lap("fem_pack")
@@ -803,8 +832,8 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
         def inner_precond(rr):
             # one flat composite vector a shard: the classes in order,
             # then the superdomain part (the rows of Q)
-            flat = torch.cat([p.reshape(Pn, -1) for p in rr], 1)
-            z = fem_apply(flat if Pn > 1 else flat[0]).reshape(Pn, -1)
+            flat = torch.cat([p.reshape(Po, -1) for p in rr], 1)
+            z = fem_apply(flat if domain.spmd else flat[0]).reshape(Po, -1)
             parts = torch.split(z, [p[0].numel() for p in rr], dim=1)
             return [q.reshape(p.shape) for q, p in zip(parts, rr)]
     elif inner == "jacobi":

@@ -88,11 +88,12 @@ def test_route_is_fixed_by_dtype_when_packed():
     A = MATS["200x200"]
     for dt in (torch.float32, torch.float64):
         m = csr.csr_from_scipy(A, dtype=dt, device="cpu")
-        assert m.route == "sparse_csr" and m.sparse is not None
+        assert m.route == "vector_csr"
+        assert m.lanes == csr.kernels.spmv_lanes(A.nnz, A.shape[0]) > 1
         assert m.crow.dtype == m.cols.dtype == torch.int32
-        assert m.sparse.layout == torch.sparse_csr
+        assert m.plan is not None     # the twin's segments, made when packed
     m = csr.csr_from_scipy(A, dtype=torch.bfloat16, device="cpu")
-    assert m.route == "segment_sum" and m.sparse is None
+    assert m.route == "segment_sum" and m.plan is None
     assert m.vals.dtype == torch.bfloat16 and m.nnz == A.nnz
     assert m.crow.dtype == m.cols.dtype == torch.int64
     assert set(csr.ROUTES) == {torch.float32, torch.float64, torch.bfloat16}

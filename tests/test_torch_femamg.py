@@ -115,7 +115,7 @@ def test_femamg_setup_stages_and_refusals():
         "p1_assembly", "plane_fold", "galerkin_chain", "pack"}
     tree = pre.extra["amg"]
     # the hierarchy is packed in the ptype (the domain's f32 here)
-    assert tree["levels"][0]["A"].route == "sparse_csr"
+    assert tree["levels"][0]["A"].route == "vector_csr"
     assert tree["Q"].shape == (tm.num_points, tree["levels"][0]["A"].shape[0])
     u = td.initial_function(4, seed=0)
     res = td.solver(method="fgmres", max_iterations=50, precond=pre)(

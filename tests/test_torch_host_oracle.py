@@ -24,6 +24,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.so
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
 
 from composite_twins import one_torch_thread  # noqa: F401 (autouse)
+import multiprocess_twins as mt
 
 
 def _bitwise_vs_reference(mesh, vals):
@@ -156,3 +157,19 @@ def test_zero_rhs_takes_no_cycle():
                             np.zeros(mesh.num_points))
     assert res.converged and res.cycles == 0 and res.history == [0.0]
     assert not res.u.any()
+
+
+def test_owned_to_global_across_two_processes(tmp_path):
+    # two gloo processes, each with its own shards (P = 4 uniform and
+    # generic, P = 2 ragged): each fills its shards' slots of the global
+    # field and one all_reduce sums the parts; equal to the one-process
+    # map, and global_to_owned gives each process its own rows back
+    import json
+    import os
+    worker = os.path.join(mt.ROOT, "tests", "torch_multiprocess_worker.py")
+    init, out = mt.store(tmp_path), tmp_path / "oracle"
+    mt.finish(mt.start(lambda r: [worker, str(r), "2", init, str(out),
+                                  "host_oracle"], 2), timeout=120)
+    for r in range(2):
+        results = json.loads((tmp_path / f"oracle.rank{r}.json").read_text())
+        assert len(results) == 3 and all(ok for _, ok, _ in results), results

@@ -179,6 +179,57 @@ def test_unstructured_path_runs_with_jax_blocked():
     assert "unstructured iterations" in out.stdout
 
 
+_WORKER = textwrap.dedent("""
+    import importlib.abc, runpy, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith("jax.") or "_tpu" in name:
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.modules["jax"] = None
+    sys.meta_path.insert(0, Block())
+    sys.argv = ["launch"] + sys.argv[1:]
+    try:
+        runpy.run_module("polynomial_reduction_with_full_domain_decomposition_"
+                         "preconditioner_torch.runtime.launch",
+                         run_name="__main__")
+    except SystemExit as e:
+        assert not e.code, e.code
+    assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
+                   for k, v in sys.modules.items() if v is not None)
+    print("worker clean")
+""")
+
+
+def test_launcher_workers_run_with_jax_blocked(tmp_path):
+    # runtime/distributed.py, ProcessComm and the launcher, spawned as the
+    # two processes of a gloo group: a structured and an unstructured
+    # composite over 2 shards, neither importing jax nor the JAX package
+    import json
+    import multiprocess_twins as mt
+    mesh = {"kind": "kershaw", "shape": [2, 2, 8], "order": 2,
+            "epsilon": 0.3}
+    runs = [{"name": name, "mesh": dict(mesh, scramble=scr), "shards": 2,
+             "dtype": "float64",
+             "precond": {"kind": "composite", "poly_reduction": 1},
+             "max_iterations": 60, "tolerance": 1e-8}
+            for name, scr in (("structured", None),
+                              ("unstructured", {"seed": 3,
+                                                "permute": False}))]
+    cfg, out = tmp_path / "cfg.json", tmp_path / "out.json"
+    cfg.write_text(json.dumps({"device": "cpu", "threads": 1,
+                               "timeout_seconds": 120, "runs": runs}))
+    init = mt.store(tmp_path)
+    outs = mt.finish(mt.start(lambda r: ["-c", _WORKER, str(r), "2", init,
+                                         "gloo", str(cfg), str(out)], 2),
+                     timeout=180)
+    assert all("worker clean" in o for o in outs), outs
+    rec = json.loads(out.read_text())
+    assert [r["converged"] for r in rec["runs"]] == [True, True]
+
+
 def test_no_jax_or_reference_imports_in_sources():
     pat = re.compile(r"^\s*(import|from)\s+[\w.]*(jax|_tpu)\b", re.M)
     seen = 0
@@ -241,9 +292,11 @@ def test_launch_signatures_are_kept_until_taken():
     assert kernels.take_signatures() == {
         "stiffness_lattice_3d": [("float32", (16, 8, 8), 2)],
         "lattice_face_sum_3d": [("bfloat16", (2, 8, 8, 8), 2, None, False,
-                                 False)]}
+                                 False)],
+        "csr_spmv": []}
     assert kernels.take_signatures() == {"stiffness_lattice_3d": [],
-                                         "lattice_face_sum_3d": []}
+                                         "lattice_face_sum_3d": [],
+                                         "csr_spmv": []}
     # a CPU tensor goes to the plain twin and leaves no signature
     kernels.lattice_face_sum_3d(torch.ones((2, 4, 4, 4)), 2)
     assert kernels.take_signatures()["lattice_face_sum_3d"] == []

@@ -1,0 +1,161 @@
+"""The port's twin of tests/test_multihost.py: a P = 4 solve over two
+processes with gloo on the CPU (runtime/distributed.py, runtime/comm.
+ProcessComm), each process materializing only its own two shards, held
+to the port's one-process ``LocalComm`` run of the same problem. The
+existing f64 twins hold that one-process run to the JAX package, so this
+file needs no JAX side.
+
+Kershaw eps=0.3 (2, 2, 8), extent (1, 1, 4), N=3, composite r=2, f64
+FGMRES to 1e-8, in four modes run by one launch of the two workers
+(runtime/launch.py): structured, structured fem-amg, unstructured
+(scrambled, seed 3, element order kept, the per-process setup cache
+written and then hit) and unstructured fem-amg. Counts equal, histories
+at rtol 1e-9 / atol 1e-14 (the processes sum the dots in another order),
+max error as tests/test_multihost.py bounds it. Then ProcessComm's
+collectives against LocalComm's, and the boundary-first op_dssum against
+operator then dssum, bitwise."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime import distributed
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.launch import run_one
+
+import multiprocess_twins as mt
+
+MESH = {"kind": "kershaw", "shape": [2, 2, 8], "order": 3, "epsilon": 0.3,
+        "extent": [1.0, 1.0, 4.0]}
+MODES = {   # name -> (inner, scrambled, max error)
+    "structured": ("amg", False, 1e-7),
+    "structured-femamg": ("fem-amg", False, 5e-7),
+    "unstructured": ("amg", True, 1e-7),
+    "unstructured-femamg": ("fem-amg", True, 5e-7),
+}
+
+
+def _run(name, cache_dir=None):
+    inner, scrambled, _ = MODES[name]
+    run = {"name": name,
+           "mesh": dict(MESH, scramble={"seed": 3, "permute": False}
+                        if scrambled else None),
+           "shards": 4, "dtype": "float64",
+           "precond": {"kind": "composite", "poly_reduction": 2,
+                       "inner": inner},
+           "method": "fgmres", "max_iterations": 100, "tolerance": 1e-8,
+           "u_star": {"function_id": 4, "seed": 1}}
+    if cache_dir is not None:
+        run["setup_cache"] = str(cache_dir)
+    return run
+
+
+@pytest.fixture(scope="module")
+def solves(tmp_path_factory):
+    """Both workers run the four modes while this process runs the same
+    four with every shard in it; returns (rank 0's record, the
+    LocalComm records)."""
+    tmp = tmp_path_factory.mktemp("mp_solves")
+    cache = tmp / "cache"
+    cache.mkdir()
+    runs = [_run(n, cache if n == "unstructured" else None) for n in MODES]
+    cfg, out = tmp / "config.json", tmp / "out.json"
+    cfg.write_text(json.dumps({"device": "cpu", "threads": 1,
+                               "timeout_seconds": 120, "runs": runs}))
+    init = mt.store(tmp)
+    procs = mt.start(lambda r: ["-m", mt.LAUNCH, str(r), "2", init, "gloo",
+                                str(cfg), str(out)], 2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        local = {n: run_one(_run(n), torch.device("cpu"), local=True)
+                 for n in MODES}
+    finally:
+        torch.set_num_threads(threads)
+    mt.finish(procs, timeout=240)
+    rec = json.loads(out.read_text())
+    return {r["name"]: r for r in rec["runs"]}, local, sorted(
+        p.name for p in cache.iterdir())
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_two_process_run_matches_local_comm(solves, mode):
+    two, local, cached = solves
+    rec, ref = two[mode], local[mode]
+    assert rec["converged"] and ref["converged"]
+    assert rec["iterations"] == ref["iterations"], (rec["iterations"],
+                                                    ref["iterations"])
+    # every process read the same (all-reduced) history
+    assert rec["same_history"]
+    np.testing.assert_allclose(rec["history"], ref["history"], rtol=1e-9,
+                               atol=1e-14)
+    assert rec["err"] < MODES[mode][2]
+    procs = rec["processes"]
+    assert [p["owned"] for p in procs] == [[0, 1], [2, 3]]
+    # gloo on CPU tensors moves them as they are: no staging copies
+    assert all(p["comm"]["host_copies"] == 0 for p in procs)
+    if mode == "unstructured":
+        # each process wrote its own payload and the rebuild loaded it
+        assert [p["cache_hit"] for p in procs] == [True, True]
+        assert cached == ["setup_unstructured_pp0of2_o0-1.npz",
+                          "setup_unstructured_pp1of2_o2-3.npz"]
+    if not MODES[mode][1]:
+        # the structured modes' outer operator ran the boundary-first
+        # split: K1 launches (plain twins here) per outer iteration
+        # include the two boundary layers of every apply
+        k1 = procs[0]["launches"]["stiffness_lattice_3d_plain"]["float64"]
+        k1_ref = ref["launches"]["stiffness_lattice_3d_plain"]["float64"]
+        assert k1 >= k1_ref
+
+
+@pytest.fixture(scope="module")
+def checks(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mp_checks")
+    init = mt.store(tmp)
+    out = tmp / "checks"
+    worker = os.path.join(mt.ROOT, "tests", "torch_multiprocess_worker.py")
+    procs = mt.start(lambda r: [worker, str(r), "2", init, str(out),
+                                "collectives", "split"], 2)
+    mt.finish(procs, timeout=180)
+    return [json.loads((tmp / f"checks.rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def test_collectives_match_local_comm(checks):
+    for rank, results in enumerate(checks):
+        got = [r for r in results if not r[0].startswith("split")]
+        assert len(got) == 2 * 10         # P = 4 and P = 2 (one shard each)
+        bad = [r for r in got if not r[1]]
+        assert not bad, (rank, bad)
+
+
+def test_boundary_first_split_is_bitwise(checks):
+    for rank, results in enumerate(checks):
+        got = [r for r in results if r[0].startswith("split")]
+        assert len(got) == 4
+        bad = [r for r in got if not r[1]]
+        assert not bad, (rank, bad)
+
+
+def test_owned_shards_and_backend_are_explicit(monkeypatch):
+    # one process owns everything; no group, no collective
+    assert distributed.owned_shards(5) == (0, 1, 2, 3, 4)
+    assert distributed.process_count() == 1
+    assert distributed.init_method("localhost:1234") == "tcp://localhost:1234"
+    assert distributed.init_method("file:///x/y") == "file:///x/y"
+    monkeypatch.setattr(distributed, "process_count", lambda: 2)
+    monkeypatch.setattr(distributed, "process_index", lambda: 1)
+    assert distributed.owned_shards(4) == (2, 3)
+    with pytest.raises(ValueError):
+        distributed.owned_shards(5)
+    # no coordinator: a single process, nothing initialized
+    monkeypatch.delenv("PRFDD_COORDINATOR", raising=False)
+    distributed.initialize_multihost()
+    # the backend is never guessed
+    with pytest.raises(ValueError):
+        distributed.initialize_multihost("localhost:1", 2, 0, backend=None)
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.comm import ProcessComm
+    with pytest.raises(RuntimeError):
+        ProcessComm(4)                 # no process group here

@@ -98,3 +98,32 @@ def test_partition_refusals():
     with pytest.raises(ValueError):
         tpartition(mesh, 2, structured=True)
     assert tpartition(mesh, 2).structured is None     # "auto" goes generic
+
+
+@pytest.mark.parametrize("name,P,owned,structured", [
+    ("box_2x2x8_N2", 4, (2, 3), True),          # uniform slabs
+    ("kershaw_4x4x7_N3", 5, (3, 4), True),      # ragged: 2, 2, 1, 1, 1
+    ("kershaw_4x4x7_N3", 4, (2, 3), False),     # generic contiguous chunks
+    ("box_2x2x8_N2", 4, (1,), False),
+])
+def test_owned_partition_matches_reference_bitwise(meshes, name, P, owned,
+                                                   structured):
+    # a process of a multi-process run materializes its own shards only:
+    # array for array the JAX package's partition_mesh(owned=...), and
+    # each row the full partition's row of that shard
+    jm, tm = meshes[name]
+    a = jpartition(jm, P, structured=structured, owned=owned)
+    b = tpartition(tm, P, structured=structured, owned=owned)
+    full = tpartition(tm, P, structured=structured)
+    assert tuple(a.owned) == b.owned == owned and b.num_owned == len(owned)
+    for f in ARRAYS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        assert y.shape[0] == len(owned), f
+        assert np.array_equal(x, y), f
+        assert np.array_equal(y, getattr(full, f)[list(owned)]), f
+    for f in SCALARS:
+        assert getattr(a, f) == getattr(b, f), f
+    assert (b.structured is None) == (not structured)
+    with pytest.raises(ValueError):
+        tpartition(tm, P, structured=structured, owned=(P,))
