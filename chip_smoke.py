@@ -137,6 +137,29 @@ Phases, each printing JSON lines (any failure exits non-zero):
            configuration (scrambled (8, 8, 8) N=2 r=1, seed 11,
            permute=False, 4 shards, f64) with the far field compressed
            and not: both converge to 1e-8, counts +-1 of the CPU's (19)
+  small-2d  the structured 2-D path, Kershaw (6, 6) N=7 f64 on the card
+           against the CPU: FGMRES with composite_dd(poly_reduction=3) and
+           FCG with pmultigrid(poly_reduction=3), equal counts, the
+           history prefixes within 1e-9
+  solve-2d  the main path's configuration in 2-D at full width: Kershaw
+           eps=0.3 192^2 N=7 (a 1536^2 lattice, 2,359,296 points), f32
+           FGMRES(20) to 1e-4 with composite_dd(poly_reduction=6,
+           inner="amg") at ptype f32 (held to the JAX package's f64 run:
+           7 +- 1 iterations, r0 within 5e-3, r1-r3 within 5%) and bf16
+           (within the f32 count + 8, or below the JAX package's relative
+           residual after 200), best of 3, setup by stage, peak memory, a
+           profiled solve; f64 refinement of the f32 solve to 1e-10 on the
+           card and through the host oracle; inner "fem-amg" (host setup by
+           stage, A0, the SpMV kernel timed against cuSPARSE and bitwise on
+           every level matrix)
+  pmg-2d   the same mesh under f32 FCG to 1e-4 with pmultigrid(
+           poly_reduction=2, smooth_damping=0.5) (32 +- 1, the JAX
+           package's) and Jacobi (at most 8,000): p-multigrid under half
+  spmd-2d  that p-multigrid over P = 8 (24 element rows a slab) and P = 5
+           (39, 39, 38, 38, 38) in one process, within +-1 of one shard's;
+           20 steps of the f32 composite at P = 8, r20 / r0 within 2x of
+           the JAX package's. The 2-D forms are plain torch: no 2-D phase
+           may launch K1 or K2, and only the fem-amg solve the SpMV
   multiprocess  2 processes on the card (runtime/launch.py spawned twice,
            gloo, each owning 2 of P = 4 shards, runtime/comm.ProcessComm)
            against the same runs with all 4 shards in this process
@@ -2754,6 +2777,465 @@ def run_multiprocess(torch, kernels, dev, path_counts):
                              f"{line}")
 
 
+# ---------------------------------------------------------------------------
+# The structured 2-D lattice path (solve-2d, pmg-2d, spmd-2d, small-2d).
+# The JAX package leaves its 2-D forms to XLA: the port's 2-D operator,
+# face sum and order transfer are plain torch on the card, and only the
+# fem-amg inner's SpMV runs a hand kernel. K1 and K2 are 3-D kernels:
+# their launch counts must not move in any 2-D phase.
+
+SHAPE_2D, N_2D = (192, 192), 7
+# The JAX package on the CPU (8 virtual devices), Kershaw eps=0.3 192^2
+# N=7, u* = initial_function(4, seed=0), FGMRES(20) to 1e-4 with
+# composite_dd(poly_reduction=6, inner="amg") or FCG with pmultigrid(
+# poly_reduction=2, smooth_damping=0.5). The card's f32 composite is held
+# to the JAX package's f64 run: on the CPU the JAX package's f32 sums of
+# 2.36M products are off by ~2e-3 (its f32 r0 is 21510.77 where the f64
+# norm of the same right-hand side is 21551.34), which takes its f32
+# composite from 7 iterations to 25; the f32 numbers are printed beside.
+#   python reference/jax_2d.py composite 192,192 1 float64 float64
+#   python reference/jax_2d.py composite 192,192 1 float32 float32
+#   python reference/jax_2d.py composite 192,192 8 float64 float64 20
+#   python reference/jax_composite.py main 192,192 8 20 float32
+#   python reference/jax_composite.py main 192,192 1 200 bfloat16
+#   python reference/jax_2d.py pmg 192,192 1 0.5   (and P = 8, 5: 32 too)
+JAX_2D = {
+    "composite_f64_p1": {
+        "iterations": 7,
+        "first": [21551.337574509398, 100.32191666707358, 31.086503978432198,
+                  13.28869108378209]},
+    "composite_f32_p1": {
+        "iterations": 25, "r0_f64": 21551.337584194607,
+        "first": [21510.765625, 129.7104034423828, 69.39483642578125,
+                  52.99410629272461]},
+    "composite_f64_p8_20": {"r0": 21551.337574509642,
+                            "rel_residual": 0.004519184436456109},
+    "composite_f32_p8_20": {"r0": 21548.283203125,
+                            "rel_residual": 79.79157257080078
+                            / 21548.283203125},
+    "composite_bf16_p1_200": {"iterations": 200, "converged": False,
+                              "rel_residual": 0.004801102145596246},
+    "pmg_p1": {"iterations": 32},
+}
+R0_RTOL_2D = 5e-3           # the f32-norm record of ROADMAP section 3
+FIRST_RTOL_2D = 0.05        # r1..r3
+BF16_EXTRA_2D = 8           # tests/test_composite_dd.py:205
+SMALL_2D = ((6, 6), 7)
+SMALL_2D_STEPS = {"composite": 6, "pmg": 30}
+FAILED_2D = []     # the 2-D checks that failed, raised after the 2-D phases
+
+
+def k12_launches(counts):
+    """Launches of K1 and K2 (and calls of their plain twins) in a
+    counts() snapshot."""
+    return sum(sum(counts.get(k, {}).values())
+               for k in ("stiffness_lattice_3d", "stiffness_lattice_3d_plain",
+                         "lattice_face_sum_3d", "lattice_face_sum_3d_plain"))
+
+
+def run_small_2d(torch, kernels, dev):
+    """Kershaw (6, 6) N=7 f64 on the card against the CPU: FGMRES with
+    composite_dd(poly_reduction=3) and FCG with pmultigrid(poly_reduction
+    =3), to 1e-8: equal counts, the history prefixes within 1e-9, no K1
+    or K2 launch."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import pmultigrid
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    shape, N = SMALL_2D
+    total = {}
+    runs = {"composite": ("fgmres", lambda d, mk, m: composite_dd(
+                d, mk, poly_reduction=3, fine_mesh=m)),
+            "pmg": ("fcg", lambda d, mk, m: pmultigrid(d, mk,
+                                                       poly_reduction=3))}
+    for label, (method, make) in runs.items():
+        out = {}
+        for where in ("cpu", dev):
+            mk = partial(kershaw_mesh, shape, epsilon=0.3, device=where)
+            mesh = mk(N)
+            dom = Domain(partition_mesh(mesh, 1), dtype=torch.float64,
+                         device=where)
+            pre = make(dom, mk, mesh)
+            u = dom.initial_function(4, seed=1)
+            f = dom.manufacture_rhs(u)
+            kernels.reset_counts()
+            res = dom.solver(method=method, max_iterations=400,
+                             tolerance=1e-8, precond=pre)(f)
+            out[str(where)] = (res.iterations, res.residual_history.cpu(),
+                               (res.u - u).abs().max().item(),
+                               kernels.counts(), bool(res.converged))
+        (ic, hc, ec, _, _), (ig, hg, eg, counts, conv) = (out["cpu"],
+                                                          out[str(dev)])
+        add_counts(total, counts)
+        k = min(ic, ig) + 1
+        rels = (hg[:k] - hc[:k]).abs() / hc[:k].abs()
+        steps = SMALL_2D_STEPS[label]
+        rel = rels[:steps + 1].max().item()
+        line = {"phase": "small-2d", "mesh": f"kershaw {shape} N={N} f64",
+                "precond": label, "method": method, "iterations_cpu": ic,
+                "iterations_gpu": ig, "history_steps_compared": steps,
+                "history_max_rel_diff": rel,
+                "history_max_rel_diff_all": rels.max().item(),
+                "max_err_gpu": eg, "max_err_cpu": ec,
+                "k1_k2_launches": k12_launches(counts), "launches": counts}
+        # to a relative residual of 1e-8 the error against u* is ~1e-6 on
+        # this mesh (1.32e-6 for the composite on an H100): the two solves
+        # must leave the same error
+        line["ok"] = (conv and ic == ig and rel <= 1e-9 and eg < 1e-5
+                      and abs(eg - ec) <= 1e-9
+                      and line["k1_k2_launches"] == 0)
+        emit(line)
+        if not line["ok"]:
+            FAILED_2D.append(line["phase"])
+    return total
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def run_solve_2d(torch, kernels, dev):
+    """The main path's configuration in 2-D at full width: Kershaw eps=0.3
+    192^2 N=7 (a 1536^2 lattice, 2,359,296 points) on one shard, f32
+    FGMRES(20) to 1e-4 with composite_dd(poly_reduction=6, inner="amg")
+    at ptype f32 (against the JAX package's f64 run, JAX_2D) and bf16,
+    f64 refinement of the f32 solve on the card and through the host
+    oracle, then inner="fem-amg" at ptype f32. Returns the launch counts
+    and what the later 2-D phases reuse."""
+    import numpy as np
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.host_oracle import HostOperator, host_refine_solve, owned_to_global
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.refine import refine_solve
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    total = {}
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    mk = partial(kershaw_mesh, SHAPE_2D, epsilon=0.3, device=dev)
+    mesh, stages["mesh"] = _timed(torch, lambda: mk(N_2D))
+    sd, stages["partition"] = _timed(torch, lambda: partition_mesh(mesh, 1))
+    dom, stages["domain"] = _timed(
+        torch, lambda: Domain(sd, dtype=torch.float32, device=dev))
+    u_star = dom.initial_function(4, seed=0)
+    f = dom.manufacture_rhs(u_star)
+    ref = JAX_2D["composite_f64_p1"]
+    lines, solves = {}, {}
+    for ptype in (torch.float32, torch.bfloat16):
+        name = str(ptype).replace("torch.", "")
+        pre, pre_s = _timed(torch, lambda: composite_dd(
+            dom, mk, poly_reduction=6, inner="amg", ptype=ptype,
+            fine_mesh=mesh))
+        solve = dom.solver(method="fgmres", max_iterations=200, precond=pre)
+        _, first_s = _timed(torch, lambda: solve(f))
+        best, res, counts = timed_solves(torch, kernels, solve, f, 3)
+        add_counts(total, counts)
+        hist = res.residual_history.cpu()
+        hist = hist[torch.isfinite(hist)]
+        its = res.iterations
+        line = {"phase": "solve-2d",
+                "mesh": f"kershaw eps=0.3 {SHAPE_2D} N={N_2D}",
+                "points": mesh.num_points,
+                "lattice": list(dom.lattice_shape),
+                "precond": f'composite_dd(poly_reduction=6, inner="amg", '
+                           f'ptype={name})',
+                "method": "fgmres(20) f32 to 1e-4",
+                "setup_seconds_by_stage": dict(stages, precond=pre_s),
+                "first_solve_seconds": first_s, "solve_seconds": best,
+                "iterations": its, "converged": bool(res.converged),
+                "ms_per_iteration": 1e3 * best / max(its, 1),
+                "residuals": [float(x) for x in hist[:4]],
+                "rel_residual": float(hist[-1] / hist[0]),
+                "lmax_DinvA_order7": float(pre.extra["amg"]["lmax0"]) / 1.1,
+                "chain_levels": [list(lv["coefs"].shape[1:]) for lv in
+                                 pre.extra["amg"]["chain"]["levels"]],
+                "k1_k2_launches": k12_launches(counts), "launches": counts,
+                "finite": bool(torch.isfinite(res.u).all()),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        lines[name], solves[name] = line, (solve, res)
+        if ptype == torch.float32:
+            first = line["residuals"]
+            line["jax_f64_iterations"] = ref["iterations"]
+            line["jax_f64_residuals"] = ref["first"]
+            line["jax_f32_cpu"] = JAX_2D["composite_f32_p1"]
+            line["r0_rel_diff"] = abs(first[0] - ref["first"][0]) \
+                / ref["first"][0]
+            line["r1_r3_rel_diff"] = [abs(a - b) / b for a, b in
+                                      zip(first[1:4], ref["first"][1:4])]
+            prof = profile_solve(torch, solve, f, phase="solve-2d-profile",
+                                 top_n=16)
+            if isinstance(prof.get("device_activities"), int):
+                prof["device_activities_per_iteration"] = \
+                    prof["device_activities"] / max(its, 1)
+            emit(prof)
+            ok = (line["converged"] and abs(its - ref["iterations"]) <= 1
+                  and line["r0_rel_diff"] <= R0_RTOL_2D
+                  and max(line["r1_r3_rel_diff"]) <= FIRST_RTOL_2D)
+        else:
+            jb = JAX_2D["composite_bf16_p1_200"]
+            f32_its = lines["float32"]["iterations"]
+            line["jax_rel_residual_after_200"] = jb["rel_residual"]
+            line["bound"] = (f"converges within the f32 count + "
+                             f"{BF16_EXTRA_2D}, or after 200 below the JAX "
+                             f"package's {jb['rel_residual']}")
+            if line["converged"] and its <= f32_its + BF16_EXTRA_2D:
+                line["outcome"] = "converged within the f32 count + 8"
+                ok = True
+            elif not line["converged"] and its == 200 \
+                    and line["rel_residual"] < jb["rel_residual"]:
+                line["outcome"] = "did not converge in 200; below the JAX " \
+                                  "package's relative residual"
+                ok = True
+            else:
+                line["outcome"] = "neither"
+                ok = False
+        line["ok"] = bool(ok and line["finite"] and line["k1_k2_launches"] == 0
+                          and plain_calls(counts) == 0)
+        emit(line)
+        if not line["ok"]:
+            FAILED_2D.append(line["phase"])
+    solve32, _ = solves["float32"]
+    del solves
+
+    # f64 refinement of the f32 solve, on the card and on the host
+    dom64 = Domain(sd, dtype=torch.float64, device=dev)
+    u64 = dom64.to_device_field(dom.from_device_field(u_star))
+    f64 = dom64.manufacture_rhs(u64)
+    kernels.reset_counts()
+    rr, ref_s = _timed(torch, lambda: refine_solve(dom64, solve32, f64,
+                                                   tolerance=1e-10))
+    counts = kernels.counts()
+    add_counts(total, counts)
+    line = {"phase": "solve-2d-refine", "rel_residual": rr.rel_residual,
+            "cycles": rr.cycles, "inner_iterations": rr.inner_iterations,
+            "history": rr.history,
+            "max_error": (rr.u - u64).abs().max().item(), "seconds": ref_s,
+            "k1_k2_launches": k12_launches(counts), "launches": counts}
+    line["ok"] = bool(rr.converged and rr.rel_residual <= 1e-10
+                      and line["k1_k2_launches"] == 0
+                      and plain_calls(counts) == 0)
+    emit(line)
+    if not line["ok"]:
+        FAILED_2D.append(line["phase"])
+    del dom64, u64, f64, rr
+    host, host_s = _timed(torch, lambda: HostOperator(mesh))
+    u_glob = owned_to_global(dom, dom.from_device_field(u_star))
+    f_host = host.apply(u_glob)
+    kernels.reset_counts()
+    hr, hr_s = _timed(torch, lambda: host_refine_solve(
+        host, dom, solve32, f_host, tolerance=1e-10))
+    counts = kernels.counts()
+    add_counts(total, counts)
+    line = {"phase": "solve-2d-host-refine", "rel_residual": hr.rel_residual,
+            "cycles": hr.cycles, "inner_iterations": hr.inner_iterations,
+            "history": hr.history,
+            "max_error": float(np.abs(hr.u - u_glob).max()),
+            "seconds": hr_s, "host_setup_seconds": host_s,
+            "device_refine_cycles": line["cycles"],
+            "device_refine_rel_residual": line["rel_residual"],
+            "k1_k2_launches": k12_launches(counts), "launches": counts}
+    line["ok"] = bool(hr.converged and hr.rel_residual <= 1e-10
+                      and line["k1_k2_launches"] == 0
+                      and plain_calls(counts) == 0)
+    emit(line)
+    if not line["ok"]:
+        FAILED_2D.append(line["phase"])
+    del host, solve32
+
+    # inner "fem-amg": the fixed-order SpMV on a 2-D hierarchy
+    pre, pre_s = _timed(torch, lambda: composite_dd(
+        dom, mk, poly_reduction=6, inner="fem-amg", ptype=torch.float32,
+        fine_mesh=mesh))
+    tree = pre.extra["amg"]
+    A0 = tree["levels"][0]["A"]
+    solve = dom.solver(method="fgmres", max_iterations=200, precond=pre)
+    solve(f)                                       # warm-up
+    best, res, counts = timed_solves(torch, kernels, solve, f, 1)
+    add_counts(total, counts)
+    hist = res.residual_history.cpu()
+    hist = hist[torch.isfinite(hist)]
+    spmv = sum(counts["csr_spmv"].values())
+    line = {"phase": "solve-2d-femamg",
+            "precond": 'composite_dd(poly_reduction=6, inner="fem-amg", '
+                       'ptype=float32)',
+            "method": "fgmres(20) f32 to 1e-4",
+            "precond_setup_seconds": pre_s,
+            "host_setup_seconds_by_stage": pre.extra["setup_seconds"],
+            "levels": [list(lv["A"].shape) for lv in tree["levels"]],
+            "A0_rows": A0.shape[0], "A0_nnz": A0.nnz,
+            "solve_seconds": best, "iterations": res.iterations,
+            "converged": bool(res.converged),
+            "residuals": [float(x) for x in hist[:4]],
+            "max_err": (res.u - u_star).abs().max().item(),
+            "spmv_launches": spmv, "spmv_per_iteration":
+                spmv / max(res.iterations, 1),
+            "k1_k2_launches": k12_launches(counts), "launches": counts}
+    line["ok"] = bool(res.converged and spmv > 0
+                      and line["k1_k2_launches"] == 0
+                      and plain_calls(counts) == 0)
+    emit(line)
+    if not line["ok"]:
+        FAILED_2D.append(line["phase"])
+    emit({"phase": "solve-2d-spmv", **spmv_line(torch, A0, "A0 (2-D fem-amg)")})
+    check_spmv(torch, kernels, hierarchy_mats(tree), "spmv-2d")
+    del pre, tree, A0, solve, res
+    return total, (mk, mesh, dom, u_star, f)
+
+
+def run_pmg_2d(torch, kernels, mk, dom, u_star, f):
+    """The same mesh and right-hand side under f32 FCG to 1e-4 with
+    pmultigrid(poly_reduction=2, smooth_damping=0.5) (orders 7, 5, 3, 1)
+    and with Jacobi (at most 8,000 iterations): p-multigrid within +-1 of
+    the JAX package's count and under half of Jacobi's."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import jacobi, pmultigrid
+    total, its = {}, {}
+    for label in ("pmg", "jacobi"):
+        if label == "pmg":
+            pre, setup_s = _timed(torch, lambda: pmultigrid(
+                dom, mk, poly_reduction=2, smooth_damping=PMG_DAMPING))
+            maxit = 2000
+        else:
+            pre, setup_s = _timed(torch, lambda: jacobi(dom))
+            maxit = 8000
+        solve = dom.solver(method="fcg", max_iterations=maxit, precond=pre)
+        best, res, counts = timed_solves(torch, kernels, solve, f, 1)
+        add_counts(total, counts)
+        hist = res.residual_history.cpu()
+        its[label] = res.iterations
+        line = {"phase": "pmg-2d",
+                "mesh": f"kershaw eps=0.3 {SHAPE_2D} N={N_2D}",
+                "precond": (f"pmultigrid(poly_reduction=2, smooth_damping="
+                            f"{PMG_DAMPING})" if label == "pmg"
+                            else "jacobi"),
+                "method": "fcg f32 to 1e-4", "setup_seconds": setup_s,
+                "iterations": res.iterations,
+                "converged": bool(res.converged), "solve_seconds": best,
+                "ms_per_iteration": 1e3 * best / max(res.iterations, 1),
+                "residuals": [float(x) for x in hist[:4]],
+                "max_err": (res.u - u_star).abs().max().item(),
+                "k1_k2_launches": k12_launches(counts), "launches": counts}
+        if label == "pmg":
+            line["jax_iterations"] = JAX_2D["pmg_p1"]["iterations"]
+        ok = (line["converged"] and line["k1_k2_launches"] == 0
+              and plain_calls(counts) == 0)
+        if label == "pmg":
+            ok = ok and abs(res.iterations
+                            - JAX_2D["pmg_p1"]["iterations"]) <= 1
+        line["ok"] = bool(ok)
+        emit(line)
+        if not ok:
+            FAILED_2D.append(line["phase"])
+    line = {"phase": "pmg-2d", "pmg_iterations": its["pmg"],
+            "jacobi_iterations": its["jacobi"],
+            "ok": its["pmg"] < its["jacobi"] // 2}
+    emit(line)
+    if not line["ok"]:
+        FAILED_2D.append("pmg-2d: p-multigrid not under half of Jacobi")
+    return total, its["pmg"]
+
+
+def run_spmd_2d(torch, kernels, dev, mk, mesh, pmg_its):
+    """The pmg-2d p-multigrid over P = 8 (24 element rows a slab) and P =
+    5 (39, 39, 38, 38, 38, padded to 39) in one process (LocalComm),
+    within +-1 of the one-shard count; 20 steps of the f32 composite at P
+    = 8, r20 / r0 within 2x of the JAX package's (f64)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import pmultigrid
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    total = {}
+    doms = {}
+    for P in (8, 5):
+        sd = partition_mesh(mesh, P)
+        dom = doms[P] = Domain(sd, dtype=torch.float32, device=dev)
+        f = dom.manufacture_rhs(dom.initial_function(4, seed=0))
+        pre = pmultigrid(dom, mk, poly_reduction=2, smooth_damping=PMG_DAMPING)
+        solve = dom.solver(method="fcg", max_iterations=2000, precond=pre)
+        best, res, counts = timed_solves(torch, kernels, solve, f, 1)
+        add_counts(total, counts)
+        hist = res.residual_history.cpu()
+        line = {"phase": "spmd-2d", "shards": P,
+                "layers": list(sd.structured.layer_counts),
+                "ragged": sd.structured.ragged,
+                "precond": f"pmultigrid(poly_reduction=2, smooth_damping="
+                           f"{PMG_DAMPING})",
+                "method": "fcg f32 to 1e-4", "iterations": res.iterations,
+                "one_shard_iterations": pmg_its,
+                "converged": bool(res.converged), "solve_seconds": best,
+                "residuals": [float(x) for x in hist[:4]],
+                "k1_k2_launches": k12_launches(counts), "launches": counts}
+        line["ok"] = bool(res.converged
+                          and abs(res.iterations - pmg_its) <= 1
+                          and line["k1_k2_launches"] == 0
+                          and plain_calls(counts) == 0)
+        emit(line)
+        if not line["ok"]:
+            FAILED_2D.append(line["phase"])
+    dom = doms[8]
+    del doms
+    f = dom.manufacture_rhs(dom.initial_function(4, seed=0))
+    pre, pre_s = _timed(torch, lambda: composite_dd(
+        dom, mk, poly_reduction=6, inner="amg", ptype=torch.float32,
+        fine_mesh=mesh))
+    solve = dom.solver(method="fgmres", max_iterations=SHORT_STEPS,
+                       precond=pre)
+    best, res, counts = timed_solves(torch, kernels, solve, f, 1)
+    add_counts(total, counts)
+    hist = res.residual_history.cpu()
+    hist = hist[torch.isfinite(hist)]
+    ref = JAX_2D["composite_f64_p8_20"]
+    ratio = float(hist[-1] / hist[0]) / ref["rel_residual"]
+    line = {"phase": "spmd-2d", "shards": 8,
+            "precond": 'composite_dd(poly_reduction=6, inner="amg", '
+                       'ptype=float32)',
+            "groups": [[g.order, g.layers, g.zcoarse]
+                       for g in pre.extra["specs"]],
+            "precond_setup_seconds": pre_s,
+            "method": f"fgmres(20) f32, {SHORT_STEPS} steps",
+            "steps": res.iterations, "solve_seconds": best,
+            "residuals": [float(x) for x in hist[:4]],
+            "rel_residual": float(hist[-1] / hist[0]),
+            "jax_f64_rel_residual": ref["rel_residual"],
+            "jax_f32_cpu_rel_residual":
+                JAX_2D["composite_f32_p8_20"]["rel_residual"],
+            "ratio_to_jax_f64": ratio,
+            "k1_k2_launches": k12_launches(counts), "launches": counts}
+    line["ok"] = bool(res.iterations == SHORT_STEPS
+                      and RATIO_WINDOW[0] <= ratio <= RATIO_WINDOW[1]
+                      and line["k1_k2_launches"] == 0
+                      and plain_calls(counts) == 0)
+    emit(line)
+    if not line["ok"]:
+        FAILED_2D.append(line["phase"])
+    return total
+
+
+def run_2d_phases(torch, kernels, dev, path_counts, phase_done):
+    """The 2-D phases, in order; launches go into path_counts. A check
+    that fails is recorded and the phases go on; the first failure raises
+    after the last 2-D phase."""
+    FAILED_2D.clear()
+    add_counts(path_counts, run_small_2d(torch, kernels, dev))
+    phase_done("small-2d")
+    counts, (mk, mesh, dom, u_star, f) = run_solve_2d(torch, kernels, dev)
+    add_counts(path_counts, counts)
+    phase_done("solve-2d")
+    counts, pmg_its = run_pmg_2d(torch, kernels, mk, dom, u_star, f)
+    add_counts(path_counts, counts)
+    phase_done("pmg-2d")
+    del dom, u_star, f
+    add_counts(path_counts, run_spmd_2d(torch, kernels, dev, mk, mesh,
+                                        pmg_its))
+    phase_done("spmd-2d")
+    if FAILED_2D:
+        raise AssertionError(f"2-D checks failed: {FAILED_2D}")
+
+
 def run_host_refine(torch, kernels, dom, mesh, solve, u_star, device_ref):
     """The main path's f32 solve as the correction engine of the host f64
     oracle (solvers/host_oracle.py) on the same mesh, to 1e-10, beside
@@ -2974,6 +3456,7 @@ def main():
     run_unstructured_phases(torch, kernels, dev, path_counts, phase_done)
     add_counts(path_counts, run_unstructured_femamg(torch, kernels, dev,
                                                     phase_done))
+    run_2d_phases(torch, kernels, dev, path_counts, phase_done)
     run_multiprocess(torch, kernels, dev, path_counts)
     phase_done("multiprocess")
 

@@ -2,9 +2,10 @@
 
 Port of the JAX package's ``amg/fem.py`` (host numpy/scipy setup): each
 hex cell between adjacent grid nodes becomes 6 Kuhn tetrahedra with
-per-simplex P1 stiffness. The default assembly is the shared native C++
-library (utils/native.py, 2-D and 3-D); the numpy assembly is 3-D and
-runs only when ``use_native=False`` is passed. ``sem_element_matrices``
+per-simplex P1 stiffness, and each quad cell of a 2-D grid 2 triangles.
+The default assembly is the shared native C++ library (utils/native.py);
+the numpy assembly, 2-D and 3-D, runs only when ``use_native=False`` is
+passed. ``sem_element_matrices``
 gives the exact SEM element matrices (order-1 layers of the composite
 FEM hierarchy use them).
 """
@@ -49,12 +50,35 @@ def _simplex_stiffness(verts):
     return np.einsum("bad,bcd->bac", grads, grads) * vol[:, None, None]
 
 
+def _assemble(X, nid, cells):
+    """COO entries of the P1 stiffness of the simplices ``cells`` (each a
+    list of d + 1 corner offsets into the node grid) of every grid cell."""
+    dim = X.shape[-1]
+    ncell = tuple(g - 1 for g in nid.shape)
+    rows, cols, vals = [], [], []
+    for corners in cells:
+        sl = [tuple(slice(c, c + m) for c, m in zip(off, ncell))
+              for off in corners]
+        verts = np.stack([X[s].reshape(-1, dim) for s in sl], axis=1)
+        ids = np.stack([nid[s].reshape(-1) for s in sl], axis=1)
+        K = _simplex_stiffness(verts)
+        m = ids.shape[1]
+        rows.append(np.repeat(ids, m, axis=1).ravel())
+        cols.append(np.tile(ids, (1, m)).ravel())
+        vals.append(np.swapaxes(K, 1, 2).ravel())
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+
+
+# two triangles a quad cell, corners as (cy, cx)
+_QUAD_TRIS = [[(0, 0), (0, 1), (1, 1)], [(0, 0), (1, 1), (1, 0)]]
+
+
 def p1_stiffness_grid(X: np.ndarray, use_native: bool = True) -> sp.csr_matrix:
-    """P1 stiffness matrix on a structured node grid X (nz, ny, nx, 3) or,
-    native only, (ny, nx, 2): CSR over C-order raveled node indices, no
-    boundary conditions. ``use_native`` (default) assembles with the
-    native library and raises if it cannot be built; False runs the numpy
-    assembly (3-D)."""
+    """P1 stiffness matrix on a structured node grid X (nz, ny, nx, 3) or
+    (ny, nx, 2): CSR over C-order raveled node indices, no boundary
+    conditions. ``use_native`` (default) assembles with the native
+    library and raises if it cannot be built; False runs the numpy
+    assembly."""
     X = np.asarray(X, dtype=np.float64)
     grid = X.shape[:-1]
     n = int(np.prod(grid))
@@ -62,25 +86,14 @@ def p1_stiffness_grid(X: np.ndarray, use_native: bool = True) -> sp.csr_matrix:
         from ..utils import native
         rows, cols, vals = native.p1_fem_coo(X)
         return native.coo_to_csr(rows, cols, vals, (n, n))
-    if X.shape[-1] != 3:
-        raise NotImplementedError("the port's numpy FEM assembly is 3-D")
+    dim = X.shape[-1]
+    if dim not in (2, 3) or len(grid) != dim:
+        raise ValueError(f"a (ny, nx, 2) or (nz, ny, nx, 3) node grid, got "
+                         f"{X.shape}")
     nid = np.arange(n, dtype=np.int64).reshape(grid)
-    nz, ny, nx = grid
-    cz, cy, cx = nz - 1, ny - 1, nx - 1
-    rows, cols, vals = [], [], []
-    for corners in _kuhn_tets():
-        verts = np.stack([X[z:z + cz, y:y + cy, x:x + cx].reshape(-1, 3)
-                          for z, y, x in corners], axis=1)     # (B, 4, 3)
-        ids = np.stack([nid[z:z + cz, y:y + cy, x:x + cx].reshape(-1)
-                        for z, y, x in corners], axis=1)       # (B, 4)
-        K = _simplex_stiffness(verts)
-        m = ids.shape[1]
-        rows.append(np.repeat(ids, m, axis=1).ravel())
-        cols.append(np.tile(ids, (1, m)).ravel())
-        vals.append(np.swapaxes(K, 1, 2).ravel())
-    A = sp.coo_matrix(
-        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-        shape=(n, n)).tocsr()
+    cells = _QUAD_TRIS if dim == 2 else _kuhn_tets()
+    rows, cols, vals = _assemble(X, nid, cells)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
     A.sum_duplicates()
     return A
 

@@ -1,7 +1,7 @@
 """Structured spectral-element mesh generation (box and Kershaw meshes).
 
-Port of the JAX package's ``mesh/generator.py`` for 3-D meshes, with
-``scramble_mesh``, which turns a structured mesh into one of unstructured
+Port of the JAX package's ``mesh/generator.py`` for 2-D and 3-D meshes,
+with ``scramble_mesh``, which turns a structured mesh into one of unstructured
 connectivity (the unstructured composite's mesh family). Node numbering,
 Dirichlet mask and multiplicities are host numpy, as there; the geometric
 factors run in torch float64 on the device the mesh is built for (the
@@ -30,19 +30,19 @@ __all__ = ["GlobalMesh", "box_mesh", "kershaw_mesh", "geometric_factors",
 class GlobalMesh:
     """A complete spectral-element mesh, all elements, host numpy arrays.
 
-    Per-element arrays use local ordering v = i + j*n + k*n^2, x fastest.
-    ``geom`` holds [G_rr, G_ss, G_tt, G_rs, G_rt, G_st] with GLL weights
-    and |J| folded in, as consumed by the stiffness kernel.
+    Per-element arrays use local ordering v = i + j*n (+ k*n^2), x
+    fastest. ``geom`` holds [G_rr, G_ss, G_rs] in 2-D and [G_rr, G_ss,
+    G_tt, G_rs, G_rt, G_st] in 3-D, with GLL weights and |J| folded in.
     """
 
     dim: int
     poly_degree: int
-    elem_shape: tuple[int, ...]       # elements per dimension (mx, my, mz)
+    elem_shape: tuple[int, ...]       # elements per dimension (mx, my[, mz])
     coords: np.ndarray                # (E, npe, dim) nodal coordinates
     glo_num: np.ndarray               # (E, npe) int64 global node ids
     node_degree: np.ndarray           # (E, npe) int32 global multiplicity
     dirichlet_mask: np.ndarray        # (E, npe) float, 0.0 on the boundary
-    geom: np.ndarray                  # (E, npe, 6) geometric factors
+    geom: np.ndarray                  # (E, npe, 3 or 6) geometric factors
     mass: np.ndarray | None = None    # (E, npe) diagonal GLL mass w * |J|
     structured_layout: bool = True    # elements stored in slab order
 
@@ -173,64 +173,81 @@ def geometric_factors(coords: np.ndarray, dim: int, poly_degree: int,
                       device=None):
     """SEM geometric factors G = w |J| (J^{-1} J^{-T}) in torch float64.
 
-    ``coords`` is (E, npe, 3). Returns host numpy ``(geom, mass)``: geom
-    (E, npe, 6) ordered [G_rr, G_ss, G_tt, G_rs, G_rt, G_st], mass the
-    (E, npe) lumped mass w |J|. Runs on ``device`` (None: the card),
-    chunked over elements, with the operation order of the reference's
-    numpy form (closed-form adjugate inverse).
+    ``coords`` is (E, npe, dim). Returns host numpy ``(geom, mass)``: geom
+    (E, npe, 3) ordered [G_rr, G_ss, G_rs] in 2-D, (E, npe, 6) ordered
+    [G_rr, G_ss, G_tt, G_rs, G_rt, G_st] in 3-D; mass the (E, npe) lumped
+    mass w |J|. Runs on ``device`` (None: the card), chunked over
+    elements, with the operation order of the reference's numpy form
+    (closed-form adjugate inverse).
     """
-    if dim != 3:
-        raise NotImplementedError("the port's meshes are 3-D")
+    if dim not in (2, 3):
+        raise ValueError(f"dim must be 2 or 3, got {dim}")
     device = resolve_device(device)
     n = poly_degree + 1
+    npe = n ** dim
     E = coords.shape[0]
     f64 = torch.float64
     Dt = torch.as_tensor(diff_matrix(n).T, dtype=f64, device=device)
     _, w = gll_points_weights(n)
-    wq = np.multiply.outer(w, np.multiply.outer(w, w))  # (n_z, n_y, n_x)
+    wq = w
+    for _ in range(dim - 1):
+        wq = np.multiply.outer(w, wq)              # (n_z,) n_y, n_x
     wq = torch.as_tensor(wq, dtype=f64, device=device)
-    pairs = [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]
-    X_all = np.asarray(coords, dtype=np.float64).reshape(E, n, n, n, dim)
-    g_out = np.empty((E, n ** 3, 6))
-    m_out = np.empty((E, n ** 3))
+    if dim == 2:
+        pairs = [(0, 0), (1, 1), (0, 1)]
+    else:
+        pairs = [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]
+    X_all = np.asarray(coords, dtype=np.float64).reshape((E,) + (n,) * dim
+                                                         + (dim,))
+    g_out = np.empty((E, npe, len(pairs)))
+    m_out = np.empty((E, npe))
     for s in range(0, E, _CHUNK_ELEMS):
         e = min(s + _CHUNK_ELEMS, E)
         X = torch.as_tensor(X_all[s:e], device=device)
-        # J[..., d, a] = d x_d / d r_a; r_a along storage axis 3 - a
-        J = torch.stack([torch.movedim(torch.tensordot(X, Dt, dims=([3 - a], [0])),
-                                       -1, 3 - a)
-                         for a in range(3)], dim=-1)
-        c00 = J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1]
-        c01 = J[..., 1, 2] * J[..., 2, 0] - J[..., 1, 0] * J[..., 2, 2]
-        c02 = J[..., 1, 0] * J[..., 2, 1] - J[..., 1, 1] * J[..., 2, 0]
-        detJ = J[..., 0, 0] * c00 + J[..., 0, 1] * c01 + J[..., 0, 2] * c02
-        r0 = torch.stack([
-            c00,
-            J[..., 0, 2] * J[..., 2, 1] - J[..., 0, 1] * J[..., 2, 2],
-            J[..., 0, 1] * J[..., 1, 2] - J[..., 0, 2] * J[..., 1, 1]], -1)
-        r1 = torch.stack([
-            c01,
-            J[..., 0, 0] * J[..., 2, 2] - J[..., 0, 2] * J[..., 2, 0],
-            J[..., 0, 2] * J[..., 1, 0] - J[..., 0, 0] * J[..., 1, 2]], -1)
-        r2 = torch.stack([
-            c02,
-            J[..., 0, 1] * J[..., 2, 0] - J[..., 0, 0] * J[..., 2, 1],
-            J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]], -1)
-        Jinv = torch.stack([r0, r1, r2], dim=-2) / detJ[..., None, None]
+        # J[..., d, a] = d x_d / d r_a; r_a along storage axis dim - a
+        J = torch.stack([torch.movedim(torch.tensordot(X, Dt, dims=([dim - a], [0])),
+                                       -1, dim - a)
+                         for a in range(dim)], dim=-1)
+        if dim == 2:
+            a_, b_ = J[..., 0, 0], J[..., 0, 1]
+            c_, d_ = J[..., 1, 0], J[..., 1, 1]
+            detJ = a_ * d_ - b_ * c_
+            Jinv = torch.stack([torch.stack([d_, -b_], -1),
+                                torch.stack([-c_, a_], -1)], dim=-2)
+        else:
+            c00 = J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1]
+            c01 = J[..., 1, 2] * J[..., 2, 0] - J[..., 1, 0] * J[..., 2, 2]
+            c02 = J[..., 1, 0] * J[..., 2, 1] - J[..., 1, 1] * J[..., 2, 0]
+            detJ = J[..., 0, 0] * c00 + J[..., 0, 1] * c01 + J[..., 0, 2] * c02
+            r0 = torch.stack([
+                c00,
+                J[..., 0, 2] * J[..., 2, 1] - J[..., 0, 1] * J[..., 2, 2],
+                J[..., 0, 1] * J[..., 1, 2] - J[..., 0, 2] * J[..., 1, 1]], -1)
+            r1 = torch.stack([
+                c01,
+                J[..., 0, 0] * J[..., 2, 2] - J[..., 0, 2] * J[..., 2, 0],
+                J[..., 0, 2] * J[..., 1, 0] - J[..., 0, 0] * J[..., 1, 2]], -1)
+            r2 = torch.stack([
+                c02,
+                J[..., 0, 1] * J[..., 2, 0] - J[..., 0, 0] * J[..., 2, 1],
+                J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]], -1)
+            Jinv = torch.stack([r0, r1, r2], dim=-2)
+        Jinv = Jinv / detJ[..., None, None]
         Gfull = torch.einsum("...ad,...bd->...ab", Jinv, Jinv) \
             * detJ[..., None, None]
         Gfull = Gfull * wq[None, ..., None, None]
         g = torch.stack([Gfull[..., a, b] for a, b in pairs], dim=-1)
         mass = wq[None] * detJ
-        g_out[s:e] = g.reshape(e - s, n ** 3, 6).cpu().numpy()
-        m_out[s:e] = mass.reshape(e - s, n ** 3).cpu().numpy()
+        g_out[s:e] = g.reshape(e - s, npe, len(pairs)).cpu().numpy()
+        m_out[s:e] = mass.reshape(e - s, npe).cpu().numpy()
     return g_out, m_out
 
 
 def _trilinear_nodes(elem_shape, poly_degree, vertex_transform):
     """Nodal coordinates for a vertex-warped mesh: the warp moves element
-    vertices only; interior GLL nodes are placed by trilinear blending,
-    so every element is a trilinear hex."""
+    vertices only; interior GLL nodes are placed by d-linear blending,
+    so every element is a bilinear quad (2-D) or a trilinear hex (3-D).
+    ``vertex_transform(x, y, z)`` gets z None in 2-D."""
     dim = len(elem_shape)
     n = poly_degree + 1
     r, _ = gll_points_weights(n)
@@ -239,8 +256,11 @@ def _trilinear_nodes(elem_shape, poly_degree, vertex_transform):
 
     grids = np.meshgrid(*[np.arange(m + 1) / m for m in elem_shape],
                         indexing="ij")
-    wx, wy, wz = vertex_transform(*grids)
-    verts = np.stack([wx, wy, wz], axis=-1)
+    if dim == 2:
+        wx, wy, _ = vertex_transform(grids[0], grids[1], None)
+        verts = np.stack([wx, wy], axis=-1)
+    else:
+        verts = np.stack(vertex_transform(*grids), axis=-1)
 
     rev = np.indices(tuple(reversed(elem_shape)))
     emulti = [rev[dim - 1 - d].reshape(-1) for d in range(dim)]
@@ -250,20 +270,21 @@ def _trilinear_nodes(elem_shape, poly_degree, vertex_transform):
         sel = tuple(emulti[d] + c[d] for d in range(dim))
         corners[(slice(None),) + c] = verts[sel]
 
-    # contract the corner axes (x, y, z) with the blend; the appended node
-    # axes come out (E, dim, n_x, n_y, n_z) -> storage (E, n_z, n_y, n_x, dim)
+    # contract the corner axes (x, y[, z]) with the blend; the appended
+    # node axes come out (E, dim, n_x, n_y[, n_z]) -> storage (E[, n_z],
+    # n_y, n_x, dim)
     out = corners
     for _ in range(dim):
         out = np.tensordot(out, blend, axes=([1], [0]))
-    out = np.transpose(out, (0, 4, 3, 2, 1))
+    out = np.transpose(out, (0,) + tuple(range(dim + 1, 1, -1)) + (1,))
     return out.reshape(E, n ** dim, dim)
 
 
 def _build(elem_shape, poly_degree, transform=None, vertex_transform=None,
            device=None) -> GlobalMesh:
     dim = len(elem_shape)
-    if dim != 3:
-        raise NotImplementedError("the port's meshes are 3-D")
+    if dim not in (2, 3):
+        raise ValueError(f"a mesh is 2-D or 3-D, got elem_shape {elem_shape}")
     npe = (poly_degree + 1) ** dim
     coords_axes, glo_num, gdims = _reference_coords(elem_shape, poly_degree)
     E = glo_num.shape[0]
@@ -296,8 +317,8 @@ def _build(elem_shape, poly_degree, transform=None, vertex_transform=None,
 
 
 def box_mesh(elem_shape, poly_degree, extent=None, device=None) -> GlobalMesh:
-    """Uniform box mesh of [0,e_0] x [0,e_1] x [0,e_2] (the unit cube when
-    ``extent`` is None)."""
+    """Uniform box mesh of [0,e_0] x [0,e_1] (x [0,e_2]): the unit square
+    or cube when ``extent`` is None."""
     elem_shape = tuple(elem_shape)
     if extent is None:
         return _build(elem_shape, poly_degree, device=device)
@@ -312,15 +333,17 @@ def box_mesh(elem_shape, poly_degree, extent=None, device=None) -> GlobalMesh:
 def kershaw_mesh(elem_shape, poly_degree, epsilon=0.3, extent=None,
                  device=None) -> GlobalMesh:
     """Kershaw-warped box mesh: epsilon=1.0 gives the uniform box, smaller
-    epsilon a higher distortion. ``extent`` scales the physical domain
-    after the warp (the unit cube when None). The geometric factors are
-    computed on ``device``."""
+    epsilon a higher distortion (in 2-D only y is warped). ``extent``
+    scales the physical domain after the warp (the unit square or cube
+    when None). The geometric factors are computed on ``device``."""
     ext = tuple(extent) if extent is not None else None
 
     def vtransform(x, y, z):
         X, Y, Z = kershaw_transform(epsilon, epsilon, x, y, z)
         if ext is not None:
-            X, Y, Z = X * ext[0], Y * ext[1], Z * ext[2]
+            X, Y = X * ext[0], Y * ext[1]
+            if Z is not None:
+                Z = Z * ext[2]
         return X, Y, Z
 
     return _build(tuple(elem_shape), poly_degree,

@@ -3,12 +3,16 @@
 Port of the JAX package's ``ops/gather_scatter.py``. Two routes:
 
 - The structured lattice route. A 3-D face sum runs through the
-  hand-written kernel ``ops/kernels.lattice_face_sum_3d``. On one shard
-  the Dirichlet mask and the inverse-multiplicity weight are fused into
-  that one pass. On P slab shards, stacked as (P, Mz, My, Mx), one
-  batched launch sums every shard's own faces, the comm's slab exchange
-  adds the neighbouring shards' boundary planes in place, and the weight
-  and the mask follow, in the JAX package's order.
+  hand-written kernel ``ops/kernels.lattice_face_sum_3d``; a 2-D one is
+  the plain torch roll form on every device (the JAX package leaves its
+  2-D face sum to XLA), with the same arithmetic. ``face_sum`` picks the
+  route by ``dim``, never by the tensor's rank: a 2-D stack (P, My, Mx)
+  has the rank of a 3-D lattice. On one shard the Dirichlet mask and the
+  inverse-multiplicity weight are fused into the face sum. On P slab
+  shards, stacked as (P, Mz, My, Mx) or (P, My, Mx), one batched face sum
+  covers every shard's own faces, the comm's slab exchange adds the
+  neighbouring shards' boundary planes in place, and the weight and the
+  mask follow, in the JAX package's order.
 - The generic route, for any partition: scatter points to each shard's
   local nodes (Qt), sum the interface nodes across shards with one psum
   of a compact interface vector, gather back to points (Q).
@@ -24,7 +28,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["lattice_face_sum", "structured_dssum", "scatter_to_nodes",
+__all__ = ["lattice_face_sum", "face_sum", "lattice_face_sum_2d",
+           "structured_dssum", "scatter_to_nodes",
            "gather_to_points", "exchange", "dssum", "ordered_sum_plan",
            "ordered_scatter_add"]
 
@@ -121,12 +126,10 @@ def _roll_masks(M: int, n: int, dtype, device):
 
 
 def lattice_face_sum(U, n: int, axes=None):
-    """Coincident-face summation per direction:
-    ``U += hi_d * roll(U,-1,d) + lo_d * roll(U,+1,d)``, in the order
-    x, y, z. A 3-D lattice with ``axes=None`` runs the fused kernel."""
-    if axes is None and U.dim() == 3:
-        from .kernels import lattice_face_sum_3d
-        return lattice_face_sum_3d(U, n)
+    """Coincident-face summation per direction, the roll form:
+    ``U += hi_d * roll(U,-1,d) + lo_d * roll(U,+1,d)`` along ``axes`` in
+    order (None: every axis of U, the last first). Plain torch in U's
+    dtype; the kernels' twins and the 2-D face sum build on it."""
     ndim = U.dim()
     for ax in (axes if axes is not None else range(ndim - 1, -1, -1)):
         M = U.shape[ax]
@@ -138,6 +141,47 @@ def lattice_face_sum(U, n: int, axes=None):
     return U
 
 
+def face_sum_rounded(U, n: int, axes, mask=None, weight=None):
+    """The roll form along ``axes`` in f32 (f64 for f64 fields), then x
+    weight, then x mask, then one cast to U's dtype: kernel K2's
+    arithmetic, which its plain twin and the 2-D face sum share."""
+    acc = torch.float64 if U.dtype == torch.float64 else torch.float32
+    R = lattice_face_sum(U.to(acc), n, axes=axes)
+    if weight is not None:
+        R = R * weight.to(acc)
+    if mask is not None:
+        R = R * mask.to(acc)
+    return R.to(U.dtype)
+
+
+def lattice_face_sum_2d(U, n: int, mask=None, weight=None):
+    """The 2-D face sum of a (My, Mx) lattice, or of each lattice of a (P,
+    My, Mx) stack (the rolls wrap inside an entry, where the flags are
+    0): x then y in f32 (f64 for f64 fields), then x weight, then x mask,
+    then one cast to U's dtype, as kernel K2 computes its 3-D sum. In f32
+    and f64 it is the JAX package's 2-D roll form bit for bit."""
+    if U.dim() not in (2, 3):
+        raise ValueError(f"a (My, Mx) lattice or a (P, My, Mx) stack, got "
+                         f"{tuple(U.shape)}")
+    d = U.dim()
+    return face_sum_rounded(U, n, (d - 1, d - 2), mask=mask, weight=weight)
+
+
+def face_sum(U, n: int, dim: int, mask=None, weight=None):
+    """The face sum of a ``dim``-D lattice or of a (P, ...) stack of them,
+    with the optional mask and weight fused in: kernel K2 (its plain twin
+    on CPU tensors) in 3-D, ``lattice_face_sum_2d`` in 2-D."""
+    if dim == 3:
+        if U.dim() not in (3, 4):
+            raise ValueError(f"a 3-D lattice or a stack of them, got shape "
+                             f"{tuple(U.shape)}")
+        from .kernels import lattice_face_sum_3d
+        return lattice_face_sum_3d(U, n, mask=mask, weight=weight)
+    if dim == 2:
+        return lattice_face_sum_2d(U, n, mask=mask, weight=weight)
+    raise ValueError(f"dim must be 2 or 3, got {dim}")
+
+
 def structured_dssum(U, *, n: int, dim: int, mask, inv_degree_pts,
                      comm=None, apply_mask: bool = True,
                      apply_weight: bool = False, top_plane=None):
@@ -145,22 +189,19 @@ def structured_dssum(U, *, n: int, dim: int, mask, inv_degree_pts,
     x inverse multiplicity (apply_weight), then x Dirichlet mask
     (apply_mask).
 
-    One shard (comm None or of size 1): a (Mz, My, Mx) lattice, the three
-    fused into one kernel pass. P shards: a (P, Mz, My, Mx) stack, one
-    batched face-sum launch for all shards, then the comm's slab exchange
-    (with the per-shard ``top_plane`` on ragged partitions), then the weight,
-    then the mask. Every input field must be zero at pad points; mask and
-    weight are zero there, so outputs keep that.
+    One shard (comm None or of size 1): a (Mz, My, Mx) or (My, Mx)
+    lattice, the three fused into one face-sum pass. P shards: a (P, Mz,
+    My, Mx) or (P, My, Mx) stack, one batched face sum for all shards,
+    then the comm's slab exchange (with the per-shard ``top_plane`` on
+    ragged partitions), then the weight, then the mask. Every input field
+    must be zero at pad points; mask and weight are zero there, so outputs
+    keep that.
     """
-    if dim != 3:
-        raise NotImplementedError("the port's dssum is 3-D")
-    from .kernels import lattice_face_sum_3d
     if comm is None or comm.size <= 1:
-        return lattice_face_sum_3d(
-            U, n,
-            mask=mask if apply_mask else None,
-            weight=inv_degree_pts if apply_weight else None)
-    U = comm.slab_exchange_add(lattice_face_sum_3d(U, n), top_plane)
+        return face_sum(U, n, dim,
+                        mask=mask if apply_mask else None,
+                        weight=inv_degree_pts if apply_weight else None)
+    U = comm.slab_exchange_add(face_sum(U, n, dim), top_plane)
     if apply_weight:
         U.mul_(inv_degree_pts)
     if apply_mask:

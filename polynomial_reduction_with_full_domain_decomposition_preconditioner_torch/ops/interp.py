@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``ops/interp.py``: the lattice forms, and the
 element-layout forms of unstructured meshes (``tensor_apply``,
-``prolongate``, ``restrict``; prolongation u_f = (J x J x J) u_c with
-J = interp(n_c -> n_f), restriction its adjoint with J^T).
+``prolongate``, ``restrict``; prolongation u_f = (J x J [x J]) u_c
+with J = interp(n_c -> n_f), restriction its adjoint with J^T).
 """
 
 from __future__ import annotations
@@ -18,11 +18,16 @@ __all__ = ["lattice_tensor_apply", "axis_contract", "tensor_apply",
 
 def tensor_apply(u, M, dim: int):
     """Apply the 1-D operator M (n_out, n_in) along every node axis of an
-    element-layout field u (..., E, n_in^3); returns (..., E, n_out^3)."""
-    if dim != 3:
-        raise NotImplementedError("the port's element transfers are 3-D")
+    element-layout field u (..., E, n_in^dim); returns (..., E,
+    n_out^dim)."""
     n_out, n_in = M.shape
     lead = u.shape[:-1]
+    if dim == 2:
+        U = u.reshape(-1, n_in, n_in)                # (e, y, x)
+        U = torch.matmul(M, torch.matmul(U, M.T))    # x, then y
+        return U.reshape(lead + (n_out ** 2,))
+    if dim != 3:
+        raise ValueError(f"dim must be 2 or 3, got {dim}")
     U = u.reshape(-1, n_in, n_in, n_in)              # (e, z, y, x)
     U = torch.matmul(U, M.T)                         # x
     U = torch.matmul(M, U)                           # y

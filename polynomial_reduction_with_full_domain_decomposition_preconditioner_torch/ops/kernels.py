@@ -26,7 +26,7 @@ import torch
 
 from ..utils.gll import diff_matrix
 from . import cuda_lib
-from .gather_scatter import lattice_face_sum
+from .gather_scatter import face_sum_rounded
 from .sem import dmul
 
 __all__ = ["stiffness_lattice_3d", "stiffness_lattice_3d_plain",
@@ -478,14 +478,9 @@ def lattice_face_sum_3d_plain(U, n: int, mask=None, weight=None):
     (B, Mz, My, Mx) stack sums each lattice on its own (the rolls wrap
     inside an entry, where the flags are 0)."""
     lattice_face_sum_3d_plain.calls.add(U.dtype)
-    acc = _acc_dtype(U.dtype)
     d = U.dim()
-    R = lattice_face_sum(U.to(acc), n, axes=(d - 1, d - 2, d - 3))
-    if weight is not None:
-        R = R * weight.to(acc)
-    if mask is not None:
-        R = R * mask.to(acc)
-    return R.to(U.dtype)
+    return face_sum_rounded(U, n, (d - 1, d - 2, d - 3), mask=mask,
+                            weight=weight)
 
 
 class FaceSumPlan(NamedTuple):

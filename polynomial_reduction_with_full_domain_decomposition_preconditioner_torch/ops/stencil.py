@@ -1,9 +1,9 @@
 """Stencil-form sparse operators on tensor node grids.
 
 Port of the JAX package's ``ops/stencil.py``: a matrix whose pattern lies
-in the 27-point box stencil of a tensor grid is stored as per-offset
-coefficient arrays. A wrapped neighbor has no CSR entry, so its
-coefficient is zero and wraparound contributions vanish.
+in the box stencil of a tensor grid (27 points in 3-D, 9 in 2-D) is
+stored as per-offset coefficient arrays. A wrapped neighbor has no CSR
+entry, so its coefficient is zero and wraparound contributions vanish.
 """
 
 from __future__ import annotations
@@ -44,25 +44,27 @@ def stencil_from_csr(A: sp.csr_matrix, grid_shape, dtype=torch.float32,
 
 
 def stencil_apply(coefs, x, dim: int):
-    """y = A x with A in stencil form; x is flat over the grid, or a (B,
-    grid points) batch of such vectors (the composite's shards, each with
-    its own vertex problem on the one replicated grid).
+    """y = A x with A in stencil form (27 points in 3-D, 9 in 2-D); x is
+    flat over the grid, or a (B, grid points) batch of such vectors (the
+    composite's shards, each with its own vertex problem on the one
+    replicated grid).
 
-    The reference's 27 rolls as one circular pad and 27 shifted views:
+    The reference's rolls as one circular pad and 3^dim shifted views:
     the view for offset o at point p reads X[(p + o) mod shape], exactly
     what roll(X, -o) gives."""
-    if dim != 3:
-        raise NotImplementedError("the port's vertex grids are 3-D")
     grid_shape = tuple(coefs.shape[1:])
+    if len(grid_shape) != dim or dim not in (2, 3):
+        raise ValueError(f"a {dim}-D stencil on grid {grid_shape}")
+    pad = (1, 1) * dim
     if x.dim() == 2:
         X = x.reshape((x.shape[0], 1) + grid_shape)
-        Xp = F.pad(X, (1, 1, 1, 1, 1, 1), mode="circular")[:, 0]
+        Xp = F.pad(X, pad, mode="circular")[:, 0]
         coefs = coefs[:, None]
     else:
         X = x.reshape(grid_shape)
-        Xp = F.pad(X[None, None], (1, 1, 1, 1, 1, 1), mode="circular")[0, 0]
-    nz, ny, nx = grid_shape
-    views = torch.stack([Xp[..., 1 + oz:1 + oz + nz, 1 + oy:1 + oy + ny,
-                            1 + ox:1 + ox + nx]
-                         for oz, oy, ox in stencil_offsets(dim)])
+        Xp = F.pad(X[None, None], pad, mode="circular")[0, 0]
+    views = torch.stack([
+        Xp[(Ellipsis,) + tuple(slice(1 + o, 1 + o + m)
+                               for o, m in zip(off, grid_shape))]
+        for off in stencil_offsets(dim)])
     return (coefs * views).sum(dim=0).reshape(x.shape)

@@ -48,7 +48,17 @@ import time
 
 import torch
 
-__all__ = ["LocalComm", "ProcessComm", "chain_pairs"]
+__all__ = ["LocalComm", "ProcessComm", "chain_pairs", "plane_index"]
+
+
+def plane_index(top_plane, U):
+    """Each shard's top-plane index of a stacked (P, Mz, My, Mx) or (P,
+    My, Mx) field U as a (P, 1, ...) gather / scatter index over U's
+    plane axes: a view, and no host-side index checks (advanced indexing
+    on the card adds a reduction, a compare and an assert per index
+    tensor)."""
+    return top_plane.view((-1, 1) + (1,) * (U.dim() - 2)).expand(
+        -1, 1, *U.shape[2:])
 
 
 def chain_pairs(num_shards: int):
@@ -119,7 +129,8 @@ class LocalComm:
 
     def slab_exchange_add(self, U, top_plane=None):
         """Add the neighbouring shards' boundary planes of the slab
-        direction into a stacked (P, Mz, My, Mx) field, IN PLACE: the sum
+        direction into a stacked (P, Mz, My, Mx) or (P, My, Mx) field, IN
+        PLACE (a 2-D field's planes are rows): the sum
         that two chain ppermutes and two plane adds give, in three
         launches.
 
@@ -135,10 +146,7 @@ class LocalComm:
             U[1:, 0] += U[:-1, -1]
             U[:-1, -1] += bottom[1:]
             return U
-        # each shard's top plane as a (P, 1, My, Mx) gather / scatter index:
-        # a view, and no host-side index checks (advanced indexing on the
-        # card adds a reduction, a compare and an assert per index tensor)
-        idx = top_plane.view(-1, 1, 1, 1).expand(-1, 1, *U.shape[2:])
+        idx = plane_index(top_plane, U)
         top = torch.gather(U, 1, idx)
         U[:-1].scatter_add_(1, idx[:-1], U[1:, :1])
         U[1:, :1] += top[:-1]
@@ -356,17 +364,16 @@ class ProcessComm:
             if top_plane is None:
                 U[:last, -1] += above
             else:
-                idx = top_plane[:last].view(-1, 1, 1, 1).expand(
-                    -1, 1, *U.shape[2:])
-                U[:last].scatter_add_(1, idx, above[:, None])
+                U[:last].scatter_add_(1, plane_index(top_plane[:last],
+                                                     U[:last]),
+                                      above[:, None])
         return U
 
     def _top_planes(self, U, top_plane=None):
         """Each local shard's top plane: the last, or ``top_plane``'s."""
         if top_plane is None:
             return U[:, -1]
-        idx = top_plane.view(-1, 1, 1, 1).expand(-1, 1, *U.shape[2:])
-        return torch.gather(U, 1, idx)[:, 0]
+        return torch.gather(U, 1, plane_index(top_plane, U))[:, 0]
 
     def slab_exchange_add(self, U, top_plane=None):
         """``LocalComm.slab_exchange_add`` over the processes: each plane

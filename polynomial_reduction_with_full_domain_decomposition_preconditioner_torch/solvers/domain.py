@@ -11,6 +11,11 @@ scrambled or pebble-bed meshes) keeps fields in the element layout, flat
 operator (ops/sem.stiffness_apply) and the face-block dssum
 (ops/face_dssum.py; its interface psum through the comm).
 
+The mesh is 3-D or 2-D; a 2-D field drops the z axis, (My, Mx) and (P,
+My, Mx), and runs on a structured slab partition in one process (the
+generic 2-D route and a 2-D Domain across processes raise
+NotImplementedError).
+
 One shard: fields are (Mz, My, Mx) tensors, as the JAX package's
 single-device Domain holds them. P > 1 shards (the JAX package's SPMD
 Domain under ``jax.shard_map``): the shard-local code runs once on
@@ -111,10 +116,17 @@ class Domain:
 
     def __init__(self, sharded: ShardedDomain, *, dtype=torch.float32,
                  device=None, comm=None):
-        if sharded.dim != 3:
-            raise NotImplementedError("the port's Domain is 3-D")
+        if sharded.dim not in (2, 3):
+            raise ValueError(f"dim must be 2 or 3, got {sharded.dim}")
+        if sharded.dim == 2 and sharded.structured is None:
+            raise NotImplementedError(
+                "a 2-D mesh needs a structured slab partition: the generic "
+                "2-D route is ROADMAP item 16b")
         P = sharded.num_shards
         self.comm = LocalComm(P) if comm is None else comm
+        if sharded.dim == 2 and self.comm.processes > 1:
+            raise NotImplementedError(
+                "a 2-D Domain across processes is ROADMAP item 16b")
         if self.comm.size != P:
             raise ValueError(f"the comm has {self.comm.size} shards but the "
                              f"domain has {P}")
@@ -373,8 +385,8 @@ class Domain:
 
     def to_device_field(self, host_field: np.ndarray):
         """Element-ordered host values of the owned shards, (owned,
-        E*npe) or flat -> the device field, (Mz, My, Mx) on one shard and
-        (owned, Mz, My, Mx) else. Pad points are zeroed: device fields are
+        E*npe) or flat -> the device field, (Mz, My, Mx) ((My, Mx) in 2-D)
+        on one shard and (owned, Mz, My, Mx) else. Pad points are zeroed: device fields are
         zero at padding."""
         st = self.sharded
         vals = np.asarray(host_field).reshape(self.num_owned, -1)
@@ -442,13 +454,18 @@ class Domain:
         dssum with Dirichlet mask and inverse-multiplicity weight."""
         st = self.sharded
         c = st.coords.reshape(-1, st.coords.shape[-1])
-        x, y, z = c[:, 0], c[:, 1], c[:, 2]
+        x, y = c[:, 0], c[:, 1]
         pi = np.pi
-        base = np.sin(pi * x) * np.sin(pi * y) * np.sin(pi * z)
+        base = np.sin(pi * x) * np.sin(pi * y)
+        if self.dim == 3:
+            base = base * np.sin(pi * c[:, 2])
         if function_id == 0:
             vals = base
         elif function_id == 1:
-            vals = base + np.sin(2 * pi * x) * np.sin(pi * y) * np.sin(pi * z)
+            extra = np.sin(2 * pi * x) * np.sin(pi * y)
+            if self.dim == 3:
+                extra = extra * np.sin(pi * c[:, 2])
+            vals = base + extra
         elif function_id == 2:
             vals = np.exp(x) * base
         elif function_id == 3:

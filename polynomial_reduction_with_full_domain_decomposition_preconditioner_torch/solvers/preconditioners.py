@@ -1,7 +1,7 @@
 """Preconditioners for the outer Krylov solve.
 
 Port of the JAX package's ``solvers/preconditioners.py`` for structured
-3-D partitions on one or more slab shards: the container, diagonal
+2-D and 3-D partitions on one or more slab shards: the container, diagonal
 (Jacobi) preconditioning and the polynomial-reduction multilevel
 (p-multigrid) V-cycle. On P shards every level is partitioned alike and
 its fields are stacked over the shards as the Domain's are. The

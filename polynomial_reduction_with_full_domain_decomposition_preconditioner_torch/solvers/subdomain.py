@@ -6,6 +6,11 @@ structured slab partitions: the matrix-free hybrid inner preconditioner
 assembled-diagonal stand-in ("jacobi") or plain QQt ("none"), under a
 fixed inner FGMRES or FCG.
 
+The mesh is 3-D or 2-D; a 2-D composite has the same structure one axis
+down (layers are element rows, interface planes lattice rows) and runs
+its operator and face sums as plain torch (ops/sem.py,
+ops/gather_scatter.face_sum), never kernels K1 and K2.
+
 One shard: the composite problem is the whole domain at order N, a
 single layer group (G=1): the composite operator is the SEM apply (kernel
 K1), the composite dssum the one-pass face sum with the mask fused in
@@ -24,7 +29,8 @@ P > 1 shards (``_composite_shards``): every shard's composite covers the
 whole domain as a cyclic stack of G layer groups: its own slab at order
 N, rings of V layers at orders N-r, ..., 1 from the neighbours, and the
 far field at order 1, z-merged by ``far_coarsen`` where the partition is
-aligned. Every group is one (P, layers*n, My, Mx) tensor over the shards:
+aligned. Every group is one (P, layers*n, My, Mx) tensor over the shards
+((P, layers*n, Mx) in 2-D):
 the composite operator is one K1 launch a group, the composite dssum one
 batched K2 launch a group (cross-order faces collapse and spread through
 J (x) J plane contractions around it), ring blocks come from the
@@ -54,8 +60,9 @@ from ..mesh.generator import geometric_factors
 from ..mesh.layout import elements_to_lattice
 from ..ops import sem
 from ..ops.interp import axis_contract, lattice_tensor_apply
-from ..ops.kernels import lattice_face_sum_3d
+from ..ops.gather_scatter import face_sum
 from ..ops.stencil import stencil_apply
+from ..runtime.comm import plane_index
 from ..runtime.checkpoint import load_chain_info, save_chain_info
 from ..utils.gll import diff_matrix, gll_points_weights, interp_matrix
 from .preconditioners import Preconditioner
@@ -246,7 +253,8 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
         a = elements_to_lattice(np.asarray(field), grid, n, dim)
         return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
 
-    geom = tuple(lattice(mesh_N.geom[..., k]) for k in range(6))
+    geom = tuple(lattice(mesh_N.geom[..., k])
+                 for k in range(mesh_N.geom.shape[-1]))
     mask = lattice(mesh_N.dirichlet_mask)
     weight = lattice(1.0 / mesh_N.node_degree.astype(np.float64))
     D = torch.as_tensor(diff_matrix(n), dtype=dtype, device=device)
@@ -294,8 +302,8 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
     def comp_dssum(parts, apply_mask=True):
         # G = 1: no group interfaces, so the composite dssum is the face
         # sum with the mask fused in
-        return [lattice_face_sum_3d(parts[0], n,
-                                    mask=mask if apply_mask else None)]
+        return [face_sum(parts[0], n, dim,
+                         mask=mask if apply_mask else None)]
 
     def A_mf(x):
         return comp_dssum(comp_operator(x), apply_mask=True)
@@ -682,7 +690,9 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             "n": g.order + 1,
         })
     adj_t = put(adj)
-    adj_g = [adj_t[:, gi].reshape(Po, 1, 1) for gi in range(G)]
+    # (P, 1, ...) over an interface plane: (My, Mx) in 3-D, a row in 2-D
+    adj_g = [adj_t[:, gi].reshape((Po,) + (1,) * (dim - 1))
+             for gi in range(G)]
 
     # interface (coarse -> fine, 1-D) and cascade matrices
     Jmats = {}
@@ -737,7 +747,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
                                      for k in range(R)] for p in owned]))
             far_zmask = put([[1.0 if k < (m_last - counts[p] - 2 * V * L)
                               * n_c else 0.0 for k in range(R)]
-                             for p in owned]).reshape(Po, R, 1, 1)
+                             for p in owned]).reshape((Po, R) + (1,) * (dim - 1))
         else:
             for fi in far_idxs:
                 fg = groups[fi]
@@ -763,14 +773,12 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
     # ---- composite ops: fields are lists of (P, lattice) group stacks ----
     def top_of(gi, U):
         if gi in dyn_top:
-            idx = dyn_top[gi].view(-1, 1, 1, 1).expand(-1, 1, *U.shape[2:])
-            return torch.gather(U, 1, idx)[:, 0]
+            return torch.gather(U, 1, plane_index(dyn_top[gi], U))[:, 0]
         return U[:, -1]
 
     def add_top(gi, U, val):
         if gi in dyn_top:
-            idx = dyn_top[gi].view(-1, 1, 1, 1).expand(-1, 1, *U.shape[2:])
-            U.scatter_add_(1, idx, val[:, None])
+            U.scatter_add_(1, plane_index(dyn_top[gi], U), val[:, None])
         else:
             U[:, -1] += val
 
@@ -787,7 +795,8 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
     def comp_assemble(parts):
         """Fine interface faces collapse onto coarse planes (the adjoint
         of the hanging-node constraints), then each group's conforming
-        face sum: one batched K2 launch a group, without the mask."""
+        face sum: one batched face sum a group (K2 in 3-D), without the
+        mask."""
         lo, hi = [None] * G, [None] * G
         for gi in range(G):
             gj = (gi + 1) % G
@@ -809,7 +818,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
                 U[:, 0] += hi[gi]
             if lo[gi] is not None:
                 add_top(gi, U, lo[gi])
-            summed.append(lattice_face_sum_3d(U, gdata[gi]["n"]))
+            summed.append(face_sum(U, gdata[gi]["n"], dim))
         return summed
 
     def comp_dssum(parts, apply_mask=True):
@@ -854,7 +863,8 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
         for l in range(L - 1, -1, -1):
             nl = n_lvl[l]
             if ragged:
-                idx = below_rows[l].view(Po, -1, 1, 1).expand(
+                idx = below_rows[l].view(
+                    (Po, -1) + (1,) * (dim - 1)).expand(
                     -1, -1, *r_lvl[l].shape[2:])
                 block = torch.gather(r_lvl[l], 1, idx)
             else:
@@ -950,7 +960,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             lam = torch.sqrt(num / den)
             scale = 1.0 / torch.clamp(torch.sqrt(num), min=1e-30)
             x = [krylov._bc(scale, yl) * yl for yl in y]
-        lmax0 = (lam * 1.1).reshape(Po, 1, 1, 1)
+        lmax0 = (lam * 1.1).reshape((Po,) + (1,) * dim)
         amg = {"chain": chain, "P1p": P1p, "P1z": P1z, "lmax0": lmax0}
 
         def restrict_to_vertex(parts):

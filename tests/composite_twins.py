@@ -167,3 +167,47 @@ def check_kershaw2216_p8(far_coarsen, groups):
     check_probe(jd, td, jp, tp, f, groups=groups)
     rj, rt = solve_both(jd, td, jp, tp, f, maxit=100)
     check_outer(rj, rt, 16, u=u, max_err=1e-6)
+
+
+# ---- the 2-D twins (tests/test_torch_2d_composite*.py) ----
+
+_K12 = ("stiffness_lattice_3d", "stiffness_lattice_3d_plain",
+        "lattice_face_sum_3d", "lattice_face_sum_3d_plain")
+
+
+def pair2d(shape, N, P, seed):
+    """The 2-D Kershaw eps=0.3 mesh of ``shape`` at order N over P shards
+    in both packages (f64; the JAX package's single-device Domain at P =
+    1), its builder, u* = initial_function(4, seed) and its right-hand
+    side."""
+    jb = partial(jg.kershaw_mesh, shape, epsilon=0.3)
+    jm = jb(N)
+    tm = port_mesh(jm)
+    kw = {} if P == 1 else {"device_mesh": jax.make_mesh((P,), ("shard",))}
+    jd = JDomain(jpartition(jm, P), dtype=jnp.float64, **kw)
+    td = TDomain(tpartition(tm, P), dtype=torch.float64, device="cpu")
+    u = jd.initial_function(4, seed=seed)
+    f = jd.manufacture_rhs(u)
+    return jb, jm, tm, jd, td, u, f
+
+
+def history(res):
+    """A solve's residual history up to its last iteration, numpy."""
+    h = res.residual_history
+    h = h.numpy() if isinstance(h, torch.Tensor) else np.asarray(h)
+    return h[:int(res.iterations) + 1]
+
+
+def solve_one(dom, pre, f, method="fgmres", tol=1e-8, maxit=150):
+    """One outer solve of the JAX field f on either package's Domain."""
+    if isinstance(dom, TDomain):
+        f = torch.as_tensor(np.array(f))
+    return dom.solver(method=method, max_iterations=maxit, tolerance=tol,
+                      precond=pre)(f)
+
+
+def no_k12():
+    """Neither K1 nor K2 (nor their plain twins) ran since the counts
+    were last reset."""
+    c = kernels.counts()
+    return all(not c[k] for k in _K12)

@@ -95,12 +95,7 @@ def test_native_p1_matches_reference_and_numpy(shape):
     A = tfem.p1_stiffness_grid(X)
     assert _same_sparse(A, jfem.p1_stiffness_grid(X))
     assert _same_sparse(A, jfem.p1_stiffness_grid(X, use_native=False))
-    if len(shape) == 3:
-        assert _same_sparse(A, tfem.p1_stiffness_grid(X, use_native=False))
-    else:
-        # the port's numpy assembly is 3-D (2-D meshes are a later slice)
-        with pytest.raises(NotImplementedError):
-            tfem.p1_stiffness_grid(X, use_native=False)
+    assert _same_sparse(A, tfem.p1_stiffness_grid(X, use_native=False))
 
 
 def test_native_coo_to_csr_sums_duplicates():
