@@ -15,7 +15,11 @@ Port of the JAX package's ``ops/gather_scatter.py``. Two routes:
   mask follow, in the JAX package's order.
 - The generic route, for any partition: scatter points to each shard's
   local nodes (Qt), sum the interface nodes across shards with one psum
-  of a compact interface vector, gather back to points (Q).
+  of a compact interface vector, gather back to points (Q). Both
+  scatter-adds are ordered (``ordered_scatter_add`` by a plan of
+  ``generic_plans``, built once): each node's copies are summed in
+  ascending point order, bf16 in f32 and rounded once, the same on every
+  run and on the card as on the CPU.
 
 Sharded arrays carry the leading shard axis; the collectives are those of
 a ``runtime/comm`` object (None: one shard, nothing to exchange).
@@ -31,7 +35,7 @@ import torch
 __all__ = ["lattice_face_sum", "face_sum", "lattice_face_sum_2d",
            "structured_dssum", "scatter_to_nodes",
            "gather_to_points", "exchange", "dssum", "ordered_sum_plan",
-           "ordered_scatter_add"]
+           "ordered_scatter_add", "generic_plans"]
 
 
 def ordered_sum_plan(index, size: int, device) -> dict | None:
@@ -69,12 +73,43 @@ def ordered_scatter_add(target, src, plan):
     return target.index_add(0, plan["rows"], seg.to(target.dtype))
 
 
-def scatter_to_nodes(u_pts, gather_ids, num_local_nodes: int):
+def _rows_plan(index, size: int, device) -> dict | None:
+    """``ordered_sum_plan`` of a scatter along the last axis of an index
+    array of any leading shape: row k's targets are offset by k * size,
+    so that the rows' sums stay apart in one flat (rows * size) target."""
+    idx = np.asarray(index.cpu() if isinstance(index, torch.Tensor)
+                     else index, dtype=np.int64)
+    idx = idx.reshape(-1, idx.shape[-1])
+    offs = size * np.arange(idx.shape[0], dtype=np.int64)[:, None]
+    return ordered_sum_plan(idx + offs, idx.shape[0] * size, device)
+
+
+def generic_plans(gather_ids, bnode_global, num_local_nodes: int,
+                  num_boundary_global: int, device) -> dict:
+    """The generic dssum's two ordered scatter plans, made once on the
+    host from the shapes the device arrays have ((points,) on one shard,
+    (P, points) stacked): points into local nodes (``nodes``) and
+    interface nodes into the compact interface vector (``iface``)."""
+    return {"nodes": _rows_plan(gather_ids, num_local_nodes + 1, device),
+            "iface": _rows_plan(bnode_global, num_boundary_global + 1,
+                                device)}
+
+
+def _ordered_rows_add(out, src, plan):
+    """``out`` (zeros, (..., size)) plus the ordered scatter-add of ``src``
+    by a ``_rows_plan`` over its rows."""
+    return ordered_scatter_add(out.reshape(-1), src.reshape(-1),
+                               plan).view(out.shape)
+
+
+def scatter_to_nodes(u_pts, gather_ids, num_local_nodes: int, plan):
     """Qt apply: sum point values into local unique nodes, along the last
-    axis. The result has num_local_nodes + 1 entries; the last is the
-    trash node that absorbs padding points. gather_ids are int64."""
+    axis, each node's points in ascending order (``plan``: the ``nodes``
+    plan of ``generic_plans``). The result has num_local_nodes + 1
+    entries; the last is the trash node that absorbs padding points.
+    gather_ids are int64."""
     out = u_pts.new_zeros(u_pts.shape[:-1] + (num_local_nodes + 1,))
-    return out.scatter_add_(-1, gather_ids, u_pts)
+    return _ordered_rows_add(out, u_pts, plan)
 
 
 def gather_to_points(w_nodes, gather_ids):
@@ -83,30 +118,34 @@ def gather_to_points(w_nodes, gather_ids):
 
 
 def exchange(w_nodes, bnode_local, bnode_global, num_boundary_global: int,
-             comm):
+             comm, plan):
     """Sum the interface nodes' values across shards: each shard adds its
     values into a compact interface vector (num_boundary_global + 1
-    entries, the last a trash slot), one psum sums the shards' vectors,
-    and each shard reads its interface nodes back from the sum."""
+    entries, the last a trash slot) by the ordered scatter ``plan`` (the
+    ``iface`` plan of ``generic_plans``), one psum sums the shards'
+    vectors, and each shard reads its interface nodes back from the sum."""
     if comm is None or num_boundary_global == 0:
         return w_nodes
     buf = w_nodes.new_zeros(w_nodes.shape[:-1] + (num_boundary_global + 1,))
-    buf.scatter_add_(-1, bnode_global, torch.gather(w_nodes, -1, bnode_local))
+    buf = _ordered_rows_add(buf, torch.gather(w_nodes, -1, bnode_local),
+                            plan)
     total = comm.psum(buf)
     return w_nodes.scatter(-1, bnode_local, total[bnode_global])
 
 
 def dssum(u_pts, *, gather_ids, mask, inv_degree, bnode_local, bnode_global,
-          num_local_nodes: int, num_boundary_global: int, comm,
+          num_local_nodes: int, num_boundary_global: int, comm, plans,
           apply_mask: bool = True, apply_weight: bool = False):
-    """Generic direct stiffness summation QQt on point fields (P, E*npe).
-    apply_weight multiplies the node sums by 1/multiplicity before the
-    exchange (the weight is the same on every shard, so this equals
-    weighting after the sum)."""
-    w = scatter_to_nodes(u_pts, gather_ids, num_local_nodes)
+    """Generic direct stiffness summation QQt on point fields, (points,)
+    on one shard or (P, points) stacked. apply_weight multiplies the node
+    sums by 1/multiplicity before the exchange (the weight is the same on
+    every shard, so this equals weighting after the sum). ``plans``: the
+    ``generic_plans`` of these index arrays."""
+    w = scatter_to_nodes(u_pts, gather_ids, num_local_nodes, plans["nodes"])
     if apply_weight:
         w = w * inv_degree
-    w = exchange(w, bnode_local, bnode_global, num_boundary_global, comm)
+    w = exchange(w, bnode_local, bnode_global, num_boundary_global, comm,
+                 plans["iface"])
     out = gather_to_points(w, gather_ids)
     if apply_mask:
         out = out * mask

@@ -5,16 +5,16 @@ geometry, the matrix-free operator, the dssum, the outer Krylov solves,
 manufactured solutions and the host <-> device field layout. A
 structured slab lattice runs the operator through kernel K1 and the
 structured dssum through kernel K2 (and the slab exchange across
-shards). An unstructured partition (``sharded.structured is None``:
-scrambled or pebble-bed meshes) keeps fields in the element layout, flat
-(E*npe,) on one shard and (P, E*npe) stacked, with the element-layout
-operator (ops/sem.stiffness_apply) and the face-block dssum
-(ops/face_dssum.py; its interface psum through the comm).
+shards). A generic partition (``sharded.structured is None``: scrambled
+or pebble-bed meshes, or ``structured=False``) keeps fields in the
+element layout, flat (E*npe,) on one shard and (P, E*npe) stacked, with
+the element-layout operator (ops/sem.stiffness_apply); its dssum is the
+face-block dssum in 3-D (ops/face_dssum.py) and the ordered generic
+gather / scatter dssum in 2-D (ops/gather_scatter.dssum), as the JAX
+package chooses them, each with its interface psum through the comm.
 
-The mesh is 3-D or 2-D; a 2-D field drops the z axis, (My, Mx) and (P,
-My, Mx), and runs on a structured slab partition in one process (the
-generic 2-D route and a 2-D Domain across processes raise
-NotImplementedError).
+The mesh is 3-D or 2-D; a 2-D field drops the z axis: (My, Mx) and (P,
+My, Mx) on a structured slab partition.
 
 One shard: fields are (Mz, My, Mx) tensors, as the JAX package's
 single-device Domain holds them. P > 1 shards (the JAX package's SPMD
@@ -41,7 +41,6 @@ from ..mesh.partition import ShardedDomain
 from ..ops import face_dssum as fd
 from ..ops import gather_scatter as gs
 from ..ops import sem
-from ..ops.kernels import lattice_face_sum_3d
 from ..runtime.comm import LocalComm
 from ..utils.gll import diff_matrix
 from . import krylov
@@ -77,14 +76,16 @@ class DomainArrays:
     stacked over the shards when P > 1), the differentiation matrix, and
     each shard's real slab layers (P,). On an unstructured partition the
     geometry factors are (E, npe) element blocks, mask and weight flat
-    fields, ``layers`` is None and ``fb`` the face-block dssum plan
-    (ops/face_dssum.device_plan)."""
+    fields, ``layers`` is None and either ``fb`` the face-block dssum plan
+    (ops/face_dssum.device_plan; 3-D) or ``gs`` the generic dssum's index
+    arrays and ordered scatter plans (2-D)."""
     geom: tuple
     mask: torch.Tensor
     inv_degree_pts: torch.Tensor
     D: torch.Tensor
     layers: torch.Tensor | None
     fb: dict | None = None
+    gs: dict | None = None
 
 
 def top_planes(layers, n: int, planes: int):
@@ -118,15 +119,8 @@ class Domain:
                  device=None, comm=None):
         if sharded.dim not in (2, 3):
             raise ValueError(f"dim must be 2 or 3, got {sharded.dim}")
-        if sharded.dim == 2 and sharded.structured is None:
-            raise NotImplementedError(
-                "a 2-D mesh needs a structured slab partition: the generic "
-                "2-D route is ROADMAP item 16b")
         P = sharded.num_shards
         self.comm = LocalComm(P) if comm is None else comm
-        if sharded.dim == 2 and self.comm.processes > 1:
-            raise NotImplementedError(
-                "a 2-D Domain across processes is ROADMAP item 16b")
         if self.comm.size != P:
             raise ValueError(f"the comm has {self.comm.size} shards but the "
                              f"domain has {P}")
@@ -176,17 +170,30 @@ class Domain:
                        else None)
 
     def _init_unstructured(self):
-        """Element-layout arrays and the face-block dssum plan, one plan a
-        shard from its global node ids, global multiplicities and
-        interface nodes, lowered to one index set over the stack."""
+        """Element-layout arrays and the dssum's plan. 3-D: the face-block
+        plan, one a shard from its global node ids, global multiplicities
+        and interface nodes, lowered to one index set over the stack. 2-D:
+        the generic plan's index arrays (the JAX package builds face
+        plans only in 3-D) and their ordered scatter plans."""
         sd = self.sharded
         n = sd.poly_degree + 1
         self.ragged = False
         self.local_grid = self.lattice_shape = None
-        self._top = None
-        fb = fd.device_plan(fd.lower_plans(shard_face_plans(sd), n,
-                                           sd.elems_per_shard),
-                            sd.num_boundary_global, self.device)
+        self._top = self._edges = None
+        fb = gsa = None
+        if self.dim == 3:
+            fb = fd.device_plan(fd.lower_plans(shard_face_plans(sd), n,
+                                               sd.elems_per_shard),
+                                sd.num_boundary_global, self.device)
+        else:
+            gsa = {"gather_ids": self.shard_put(sd.gather_ids, torch.int64),
+                   "inv_degree": self.shard_put(sd.inv_degree, self.dtype),
+                   "bnode_local": self.shard_put(sd.bnode_local, torch.int64),
+                   "bnode_global": self.shard_put(sd.bnode_global,
+                                                  torch.int64)}
+            gsa["plans"] = gs.generic_plans(
+                gsa["gather_ids"], gsa["bnode_global"], sd.num_local_nodes,
+                sd.num_boundary_global, self.device)
         self.arrays = DomainArrays(
             geom=tuple(self.shard_put(np.ascontiguousarray(sd.geom[..., k]),
                                       self.dtype)
@@ -195,7 +202,7 @@ class Domain:
             inv_degree_pts=self.shard_put(sd.inv_degree_pts, self.dtype),
             D=torch.as_tensor(diff_matrix(n), device=self.device).to(
                 self.dtype),
-            layers=None, fb=fb)
+            layers=None, fb=fb, gs=gsa)
 
     def _edge_layers(self):
         """The boundary-first split's element layers on each owned shard:
@@ -236,26 +243,42 @@ class Domain:
         """(operator, dssum, dot, dot2) closures over the device arrays.
         ``operator.fused_dssum`` is the fused p -> (A p, QQt A p) where the
         JAX package builds one (SPMD structured, and ragged or slabs of
-        >= 3 layers), else None. An unstructured partition has the
-        element-layout operator and the face-block dssum."""
+        >= 3 layers), else None. A generic partition has the
+        element-layout operator and the face-block (3-D) or generic (2-D)
+        dssum."""
         a = self.arrays
         n = self.poly_degree + 1
         comm = self.comm if self.spmd else None
         top = self._top
+        sd = self.sharded
 
-        if a.fb is not None:
-            npe = self.sharded.num_points_per_elem
+        if self.lattice_shape is None:
+            npe = sd.num_points_per_elem
 
             def operator(u):
                 ue = u.reshape(u.shape[:-1] + (-1, npe))
                 return sem.stiffness_apply(ue, a.geom, a.D,
                                            self.dim).reshape(u.shape)
 
+        if a.fb is not None:
             def dssum(u, apply_mask=True, apply_weight=False):
                 return fd.face_dssum(
                     u, a.fb, mask=a.mask, inv_degree_pts=a.inv_degree_pts,
                     comm=comm, apply_mask=apply_mask,
                     apply_weight=apply_weight)
+        elif a.gs is not None:
+            g = a.gs
+
+            def dssum(u, apply_mask=True, apply_weight=False):
+                return gs.dssum(
+                    u, gather_ids=g["gather_ids"], mask=a.mask,
+                    inv_degree=g["inv_degree"],
+                    bnode_local=g["bnode_local"],
+                    bnode_global=g["bnode_global"],
+                    num_local_nodes=sd.num_local_nodes,
+                    num_boundary_global=sd.num_boundary_global, comm=comm,
+                    apply_mask=apply_mask, apply_weight=apply_weight,
+                    plans=g["plans"])
         else:
             def operator(u):
                 return sem.stiffness_apply_lattice(u, a.geom, a.D, self.dim)
@@ -276,14 +299,16 @@ class Domain:
                                        krylov.tree_dot(z, w))
 
         op_dssum = None
-        fused = self.spmd and a.fb is None and (
-            self.ragged or self.sharded.structured.slab_elems >= 3)
+        fused = self.spmd and self.lattice_shape is not None and (
+            self.ragged or sd.structured.slab_elems >= 3)
         if fused and self.multiprocess:
             # the boundary-first split of the JAX package's SPMD Domain:
             # the two boundary element layers first, their outer planes
-            # face-summed in x and y (K2 on the layer: its z pass leaves
-            # a layer's first and last plane alone, so they equal the
-            # full face sum's) and handed to the comm's exchange, which
+            # face-summed across the slab direction (the face sum of the
+            # layer, K2 in 3-D: a one-element layer's slab-direction pass
+            # leaves its first and last plane alone, so they equal the
+            # full face sum's; in 2-D the planes are rows, summed in x)
+            # and handed to the comm's exchange, which
             # travels (on NCCL's stream, or on gloo's threads from host
             # buffers) while the apply runs; then the face sum and the
             # exchanged planes' adds. Like the JAX package's ragged
@@ -295,14 +320,14 @@ class Domain:
             def op_dssum(z, apply_mask=True):
                 z_lo = z[:, :n].contiguous()
                 z_hi = _planes_from(z, e["hi0"], n).contiguous()
-                plane_lo = lattice_face_sum_3d(sem.stiffness_apply_lattice(
-                    z_lo, e["geom_lo"], a.D, self.dim), n)[:, 0]
-                plane_hi = lattice_face_sum_3d(sem.stiffness_apply_lattice(
-                    z_hi, e["geom_hi"], a.D, self.dim), n)[:, -1]
+                plane_lo = gs.face_sum(sem.stiffness_apply_lattice(
+                    z_lo, e["geom_lo"], a.D, self.dim), n, self.dim)[:, 0]
+                plane_hi = gs.face_sum(sem.stiffness_apply_lattice(
+                    z_hi, e["geom_hi"], a.D, self.dim), n, self.dim)[:, -1]
                 ex = self.comm.slab_exchange_start(plane_lo, plane_hi)
                 q = operator(z)
                 U = self.comm.slab_exchange_finish(
-                    lattice_face_sum_3d(q, n), ex, top)
+                    gs.face_sum(q, n, self.dim), ex, top)
                 if apply_mask:
                     U.mul_(a.mask)
                 return q, U

@@ -1,9 +1,9 @@
 """Preconditioners for the outer Krylov solve.
 
-Port of the JAX package's ``solvers/preconditioners.py`` for structured
-2-D and 3-D partitions on one or more slab shards: the container, diagonal
-(Jacobi) preconditioning and the polynomial-reduction multilevel
-(p-multigrid) V-cycle. On P shards every level is partitioned alike and
+Port of the JAX package's ``solvers/preconditioners.py`` for 2-D and 3-D
+partitions on one or more shards: the container, diagonal (Jacobi)
+preconditioning on every partition and the polynomial-reduction
+multilevel (p-multigrid) V-cycle on structured slab partitions. On P shards every level is partitioned alike and
 its fields are stacked over the shards as the Domain's are. The
 production preconditioner is ``solvers/subdomain.composite_dd``.
 
@@ -56,8 +56,8 @@ def jacobi(domain) -> Preconditioner:
 
     def build(arrays, extra, ops):
         _, dssum, _, _ = ops
-        if arrays.fb is not None:
-            # an unstructured partition: element-layout factors
+        if domain.lattice_shape is None:
+            # a generic partition: element-layout factors
             d = sem.stiffness_diagonal(arrays.geom, arrays.D, domain.dim)
             d = dssum(d.reshape(arrays.mask.shape), apply_mask=False)
             inv_diag = torch.where(d > 0, 1.0 / d, torch.zeros_like(d))

@@ -10,10 +10,13 @@ for step (numpy / scipy, mesh/graph.py):
   ORDER into classes (own + ring 0 at order N, ring l at order N - l r,
   the last ring and the far field at order 1), each one (P, E_c, n_c^3)
   element stack over the shards;
-- same-order assembly by per-class face-block plans (ops/face_dssum.py);
-  cross-order continuity slaves fine face nodes to the coarse trace
-  (graph.slave_constraints, the orientation absorbed into the host
-  indices and weights), run on a compact vector of the touched nodes;
+- same-order assembly: in 3-D by per-class face-block plans
+  (ops/face_dssum.py), in 2-D (where the JAX package builds no face
+  plans) by an ordered scatter of each class's points into its nodes and
+  a gather back; cross-order continuity slaves fine face nodes to the
+  coarse trace (graph.slave_constraints, the orientation absorbed into
+  the host indices and weights), run in 3-D on a compact vector of the
+  touched nodes and in 2-D on the class's node vector;
 - a large far field is compressed algebraically (``far_compress``): kept
   fine vertices near the rings and smoothed aggregates for the rest, a
   sparse block per shard.
@@ -371,85 +374,99 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
                "valid": sup_valid, "vids": sup_vids, "ns": ns, "Ef": Ef}
     lap("superdomain")
 
-    # ---- face-block plans + touched-node compaction per class ----
-    for c in range(C):
-        cl = classes[c]
-        plans = []
-        for p in owned:
-            s = cls_setups[c][p]
-            gl = s["gids"].reshape(s["E"], s["npe"])
-            gl = np.where(gl == s["NN"], -1, gl)
-            deg_c = np.bincount(gl[gl >= 0], minlength=s["NN"])
-            deg_pts = np.where(gl >= 0, deg_c[np.maximum(gl, 0)], 0)
-            plans.append(fd.build_face_plan(gl, cl["n"], deg_pts)[0])
-        cl["fb"] = fd.lower_plans(plans, cl["n"], cl["E"])
-    # touched nodes: slave cols from below, slave ids to above, the
-    # superdomain interface on the coarsest class
-    cls_T = []
-    for c in range(C):
-        per_T = []
-        for p in range(Pn):
-            parts_T = []
-            if c > 0 and per_slv_cols[c - 1][p].size:
-                parts_T.append(per_slv_cols[c - 1][p].reshape(-1))
-            if c < C - 1 and per_slv_ids[c][p].size:
-                parts_T.append(per_slv_ids[c][p])
-            if c == C - 1 and sup is not None:
-                parts_T.append(np.asarray(
-                    [ci for ci, _ in per_sup[p]["iface"]], dtype=np.int64))
-            per_T.append(np.unique(np.concatenate(parts_T)) if parts_T
-                         else np.zeros(0, np.int64))
-        cls_T.append(per_T)
-    cls_NT = [max(t.size for t in cls_T[c]) for c in range(C)]
+    if dim == 2:
+        # the JAX package's 2-D route: no face plans; each class is
+        # assembled by a scatter of its points into its nodes and a gather
+        # back, and the constraint algebra indexes the class's own node
+        # vector (NT = NN: every node counts as touched)
+        for cl, per in zip(classes, cls_setups):
+            NN = cl["NN"]
+            per = [per[p] for p in owned]
+            cl.update(NT=NN, pmask=np.stack([s["nmask"][s["gids"]]
+                                             for s in per]),
+                      gids=np.stack([np.where(s["gids"] == s["NN"], NN,
+                                              s["gids"]) for s in per]))
+        lap("scatter_plans")
+    else:
+        # ---- face-block plans + touched-node compaction per class ----
+        for c in range(C):
+            cl = classes[c]
+            plans = []
+            for p in owned:
+                s = cls_setups[c][p]
+                gl = s["gids"].reshape(s["E"], s["npe"])
+                gl = np.where(gl == s["NN"], -1, gl)
+                deg_c = np.bincount(gl[gl >= 0], minlength=s["NN"])
+                deg_pts = np.where(gl >= 0, deg_c[np.maximum(gl, 0)], 0)
+                plans.append(fd.build_face_plan(gl, cl["n"], deg_pts)[0])
+            cl["fb"] = fd.lower_plans(plans, cl["n"], cl["E"])
+        # touched nodes: slave cols from below, slave ids to above, the
+        # superdomain interface on the coarsest class
+        cls_T = []
+        for c in range(C):
+            per_T = []
+            for p in range(Pn):
+                parts_T = []
+                if c > 0 and per_slv_cols[c - 1][p].size:
+                    parts_T.append(per_slv_cols[c - 1][p].reshape(-1))
+                if c < C - 1 and per_slv_ids[c][p].size:
+                    parts_T.append(per_slv_ids[c][p])
+                if c == C - 1 and sup is not None:
+                    parts_T.append(np.asarray(
+                        [ci for ci, _ in per_sup[p]["iface"]], dtype=np.int64))
+                per_T.append(np.unique(np.concatenate(parts_T)) if parts_T
+                             else np.zeros(0, np.int64))
+            cls_T.append(per_T)
+        cls_NT = [max(t.size for t in cls_T[c]) for c in range(C)]
 
-    def tmap_of(c, p):
-        T = cls_T[c][p]
-        m = np.full(cls_setups[c][p]["NN"] + 1, cls_NT[c], dtype=np.int64)
-        m[T] = np.arange(T.size)
-        return m
+        def tmap_of(c, p):
+            T = cls_T[c][p]
+            m = np.full(cls_setups[c][p]["NN"] + 1, cls_NT[c], dtype=np.int64)
+            m[T] = np.arange(T.size)
+            return m
 
-    # slave / interface indices in touched-compact numbering
-    for c in range(C - 1):
-        s = slaves[c]
-        for j, p in enumerate(owned):
-            mf, mc = tmap_of(c, p), tmap_of(c + 1, p)
-            nn_f = cls_setups[c][p]["NN"]
-            nn_c = cls_setups[c + 1][p]["NN"]
-            s["ids"][j] = np.where(s["ids"][j] < nn_f,
-                                   mf[np.minimum(s["ids"][j], nn_f)],
-                                   cls_NT[c])
-            s["cols"][j] = np.where(s["cols"][j] < nn_c,
-                                    mc[np.minimum(s["cols"][j], nn_c)],
-                                    cls_NT[c + 1])
-    if sup is not None:
-        for j, p in enumerate(owned):
-            mt = tmap_of(C - 1, p)
-            nn_t = cls_setups[C - 1][p]["NN"]
-            sup["ifc"][j] = np.where(sup["ifc"][j] < nn_t,
-                                     mt[np.minimum(sup["ifc"][j], nn_t)],
-                                     cls_NT[C - 1])
-    for c in range(C):
-        cl = classes[c]
-        NT, T_pts = cls_NT[c], cl["E"] * cl["npe"]
-        trep = np.zeros((Po, NT + 1), dtype=np.int64)
-        tpts, tids = [], []
-        pmask = np.zeros((Po, T_pts))
-        for j, p in enumerate(owned):
-            tm = tmap_of(c, p)
-            gl = cls_setups[c][p]["gids"]
-            sel = np.flatnonzero(np.isin(gl, cls_T[c][p]))
-            tpts.append(j * T_pts + sel)
-            tids.append(j * (NT + 1) + tm[gl[sel]])
-            # a representative point per touched node: the first (the
-            # trash slot NT reads point 0; every use of it is masked)
-            first = np.zeros(NT + 1, dtype=np.int64)
-            first[tm[gl[sel]][::-1]] = sel[::-1]
-            trep[j] = j * T_pts + first
-            s = cls_setups[c][p]
-            pmask[j] = s["nmask"][np.minimum(s["gids"], s["NN"])]
-        cl.update(NT=NT, trep=trep.reshape(-1), tpts=np.concatenate(tpts),
-                  tids=np.concatenate(tids), pmask=pmask)
-    lap("face_plans")
+        # slave / interface indices in touched-compact numbering
+        for c in range(C - 1):
+            s = slaves[c]
+            for j, p in enumerate(owned):
+                mf, mc = tmap_of(c, p), tmap_of(c + 1, p)
+                nn_f = cls_setups[c][p]["NN"]
+                nn_c = cls_setups[c + 1][p]["NN"]
+                s["ids"][j] = np.where(s["ids"][j] < nn_f,
+                                       mf[np.minimum(s["ids"][j], nn_f)],
+                                       cls_NT[c])
+                s["cols"][j] = np.where(s["cols"][j] < nn_c,
+                                        mc[np.minimum(s["cols"][j], nn_c)],
+                                        cls_NT[c + 1])
+        if sup is not None:
+            for j, p in enumerate(owned):
+                mt = tmap_of(C - 1, p)
+                nn_t = cls_setups[C - 1][p]["NN"]
+                sup["ifc"][j] = np.where(sup["ifc"][j] < nn_t,
+                                         mt[np.minimum(sup["ifc"][j], nn_t)],
+                                         cls_NT[C - 1])
+        for c in range(C):
+            cl = classes[c]
+            NT, T_pts = cls_NT[c], cl["E"] * cl["npe"]
+            trep = np.zeros((Po, NT + 1), dtype=np.int64)
+            tpts, tids = [], []
+            pmask = np.zeros((Po, T_pts))
+            for j, p in enumerate(owned):
+                tm = tmap_of(c, p)
+                gl = cls_setups[c][p]["gids"]
+                sel = np.flatnonzero(np.isin(gl, cls_T[c][p]))
+                tpts.append(j * T_pts + sel)
+                tids.append(j * (NT + 1) + tm[gl[sel]])
+                # a representative point per touched node: the first (the
+                # trash slot NT reads point 0; every use of it is masked)
+                first = np.zeros(NT + 1, dtype=np.int64)
+                first[tm[gl[sel]][::-1]] = sel[::-1]
+                trep[j] = j * T_pts + first
+                s = cls_setups[c][p]
+                pmask[j] = s["nmask"][np.minimum(s["gids"], s["NN"])]
+            cl.update(NT=NT, trep=trep.reshape(-1), tpts=np.concatenate(tpts),
+                      tids=np.concatenate(tids), pmask=pmask)
+        lap("face_plans")
 
     fem = None
     if inner == "fem-amg":
@@ -585,22 +602,29 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
     cls_x = []
     for c, cl in enumerate(classes):
         shp = (Po, cl["E"], cl["npe"])
-        fb = cl["fb"]
         x = {
             "shape": shp,
-            "geom": tuple(put(cl["geom"][..., k]) for k in range(6)),
+            "geom": tuple(put(cl["geom"][..., k])
+                          for k in range(cl["geom"].shape[-1])),
             "D": torch.as_tensor(diff_matrix(cl["n"]), device=device).to(
                 dtype),
             "src": idx(cl["src"]),
             "valid": put(cl["valid"][..., None]),
             "pmask": put(cl["pmask"].reshape(shp)),
-            "fb": fd.device_plan(fb, 0, device),
-            "trep": idx(cl["trep"]), "tpts": idx(cl["tpts"]),
-            "tids": idx(cl["tids"]), "NT": cl["NT"],
+            "NT": cl["NT"],
             # corner vertex ids over the (P, nv + 1) vertex stack
             "vids": idx(cl["vids"] + (nv + 1) * np.arange(Po)[:, None, None]),
             "pw": put(cl["pw"]),
         }
+        if dim == 3:
+            x.update(fb=fd.device_plan(cl["fb"], 0, device),
+                     trep=idx(cl["trep"]), tpts=idx(cl["tpts"]),
+                     tids=idx(cl["tids"]))
+        else:
+            # each shard's class nodes at (NN + 1) p over the stack
+            gids = cl["gids"] + (cl["NN"] + 1) * np.arange(Po)[:, None]
+            x.update(gids=idx(gids), scatter=ordered_sum_plan(
+                gids, Po * (cl["NN"] + 1), device))
         cls_x.append(x)
     slv_x = []
     for c, s in enumerate(slaves):
@@ -648,11 +672,18 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
         return out
 
     def comp_dssum(parts, apply_mask=True):
-        # face-block exact assembly per class, then the slave /
-        # superdomain constraint algebra on the compact touched vectors
+        # exact assembly per class (3-D: face blocks, then the slave /
+        # superdomain constraint algebra on the compact touched vectors;
+        # 2-D: an ordered scatter into the class's nodes, the algebra on
+        # those node vectors)
         ys, wTs = [], []
         for c in range(C):
             cx = cls_x[c]
+            if dim == 2:
+                wTs.append(ordered_scatter_add(
+                    parts[c].new_zeros(Po * (cx["NT"] + 1)),
+                    parts[c].reshape(-1), cx["scatter"]))
+                continue
             if cx["shape"][1] == 0:          # an empty class
                 ys.append(parts[c])
                 wTs.append(parts[c].new_zeros(Po * (cx["NT"] + 1)))
@@ -683,12 +714,15 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
         outs = []
         for c in range(C):
             cx = cls_x[c]
-            if cx["shape"][1] == 0:
+            if dim == 2:
+                y = wTs[c][cx["gids"]].view(cx["shape"])
+            elif cx["shape"][1] == 0:
                 outs.append(ys[c])
                 continue
-            y = ys[c].reshape(-1).index_copy(0, cx["tpts"],
-                                             wTs[c][cx["tids"]])
-            y = y.view(cx["shape"])
+            else:
+                y = ys[c].reshape(-1).index_copy(0, cx["tpts"],
+                                                 wTs[c][cx["tids"]])
+                y = y.view(cx["shape"])
             outs.append(y * cx["pmask"] if apply_mask else y)
         if sup_x is not None:
             outs.append(w_sup * sup_x["mask"] if apply_mask else w_sup)

@@ -25,6 +25,17 @@ an f64 run is f64) and prints one JSON line per run:
       (8, 8, 8) N=2 r=1, permute=False, over 4 shards in f64 with the far
       field compressed and without. The counts the port's CPU tests
       (tests/test_torch_unstructured_femamg.py) are held to.
+  python reference/jax_unstructured.py 2d SHAPE P PERMUTE DTYPE [MAXIT]
+      the 2-D generic routes at N=7 over P shards: Kershaw eps=0.3 on the
+      2-D SHAPE (e.g. 192,192), scrambled with seed 7 (PERMUTE 1: the
+      element order permuted too, 0: kept) or, with PERMUTE "generic",
+      not scrambled and partitioned with structured=False; FGMRES(20) in
+      DTYPE (float32 or float64, the ptype alike) to 1e-4 with
+      composite_dd(poly_reduction=6, inner="amg"), u* =
+      initial_function(4, seed=0), MAXIT outer iterations at most
+      (default 200), and the Chebyshev bounds (lmax0, one a shard).
+      chip_smoke.py's generic-2d, unstructured-2d and
+      unstructured-spmd-2d phases hold the card to these runs.
 
 Each line carries its wall seconds and the process's peak RSS.
 """
@@ -146,6 +157,49 @@ def femamg(jax):
             far_compress=fc)
 
 
+def two_d(jax, shape, Pn, permute, dtype, maxit):
+    import numpy as np
+    import jax.numpy as jnp
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh import generator as mg
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_tpu.solvers import subdomain as sub
+    t0 = time.time()
+    if permute == "generic":
+        mk = lambda o: mg.kershaw_mesh(shape, o, epsilon=0.3)
+    else:
+        mk = lambda o: mg.scramble_mesh(mg.kershaw_mesh(shape, o, 0.3),
+                                        seed=7, permute=permute == "1")
+    mesh = mk(7)
+    dm = jax.make_mesh((Pn,), ("shard",)) if Pn > 1 else None
+    dt = getattr(jnp, dtype)
+    dom = Domain(partition_mesh(mesh, Pn, structured=False), dtype=dt,
+                 device_mesh=dm)
+    u_star = dom.initial_function(4, seed=0)
+    f = dom.manufacture_rhs(u_star)
+    pre = sub.composite_dd(dom, mk, poly_reduction=6, inner="amg",
+                           ptype=dt, fine_mesh=mesh)
+    setup_s = time.time() - t0
+    sup = pre.extra.get("sup")
+    res = dom.solver(method="fgmres", max_iterations=maxit,
+                     tolerance=1e-4, precond=pre)(f)
+    hist = np.asarray(res.residual_history, dtype=np.float64)
+    hist = hist[np.isfinite(hist)]
+    err = float(np.abs(np.asarray(dom.from_device_field(res.u))
+                       - np.asarray(dom.from_device_field(u_star))).max())
+    lmax0 = np.asarray(pre.extra["amg"]["lmax0"], np.float64).reshape(-1)
+    _emit(what="2d", shape=list(shape), shards=Pn, permute=permute,
+          dtype=dtype, lmax0=[float(x) for x in lmax0],
+          iterations=int(res.iterations),
+          converged=bool(res.converged), r0=float(hist[0]),
+          first=[float(x) for x in hist[:6]],
+          rel_residual=float(hist[-1] / hist[0]), max_error=err,
+          compressed=sup is not None,
+          superdomain_size=(int(sup["mask"].shape[-1]) if sup is not None
+                            else 0),
+          setup_seconds=setup_s, seconds=time.time() - t0)
+
+
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "regions"
     shape = tuple(int(x) for x in sys.argv[2].split(",")) \
@@ -155,6 +209,9 @@ if __name__ == "__main__":
         regions(shape, Pn)
     elif what == "femamg":
         femamg(_jax())
+    elif what == "2d":
+        two_d(_jax(), shape, Pn, sys.argv[4], sys.argv[5],
+              int(sys.argv[6]) if len(sys.argv) > 6 else 200)
     elif what == "spmd":
         spmd(_jax(), shape, Pn,
              int(sys.argv[4]) if len(sys.argv) > 4 else 200,

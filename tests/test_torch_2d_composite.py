@@ -5,7 +5,7 @@ Kershaw (4, 4) N=5 r=2 (tests/test_composite_dd.py::
 test_composite_dd_single_shard_converges), the f32 and bf16 ptypes, the
 lighter inners "fem-amg", "jacobi" and "none", the host oracle's
 refinement at P = 1 and 8 (tests/test_host_oracle.py) and the device f64
-refinement, and the two 2-D refusals. The composite over 8 and 4 shards
+refinement, and what 2-D still refuses. The composite over 8 and 4 shards
 is tests/test_torch_2d_composite_spmd.py. Helpers: tests/
 composite_twins.py.
 
@@ -32,6 +32,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.me
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.comm import LocalComm
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import host_oracle as tho
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import preconditioners as tpre
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import subdomain as tsub
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain as TDomain
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.refine import refine_solve
@@ -98,11 +99,17 @@ def test_inner_variants_p1_match_reference(inner):
 
 def test_2d_refusals():
     # the generic (structured=False) 2-D route and a 2-D Domain across
-    # processes are not ported: each raises, naming its ROADMAP item
+    # processes are ported (tests/test_torch_2d_generic.py and tests/
+    # test_torch_multiprocess.py hold them to their references): both are
+    # built now; what a 2-D generic partition still refuses is what the
+    # JAX package refuses there, p-multigrid
     mesh = tg.kershaw_mesh((4, 4), 2, epsilon=0.3, device="cpu")
-    with pytest.raises(NotImplementedError, match="16b"):
-        TDomain(tpartition(mesh, 2, structured=False), dtype=torch.float64,
-                device="cpu")
+    generic = TDomain(tpartition(mesh, 2, structured=False),
+                      dtype=torch.float64, device="cpu")
+    assert generic.arrays.gs is not None and generic.lattice_shape is None
+    with pytest.raises(NotImplementedError, match="structured partition"):
+        tpre.pmultigrid(generic, lambda o: tg.kershaw_mesh(
+            (4, 4), o, epsilon=0.3, device="cpu"), poly_reduction=1)
 
     class TwoProcesses(LocalComm):
         processes = 2
@@ -111,9 +118,9 @@ def test_2d_refusals():
             super().__init__(2)
             self.local_shards = 1
 
-    with pytest.raises(NotImplementedError, match="16b"):
-        TDomain(tpartition(mesh, 2, owned=(0,)), dtype=torch.float64,
-                device="cpu", comm=TwoProcesses())
+    split = TDomain(tpartition(mesh, 2, owned=(0,)), dtype=torch.float64,
+                    device="cpu", comm=TwoProcesses())
+    assert split.multiprocess and split.field_shape == (6, 12)
 
 
 def _host_refine_pair(shape, N, P, tol, maxit):

@@ -240,6 +240,9 @@ def test_face_dssum_weight_mask_match_scatter(meshes):
     vals = rng.random(tm.num_points)
     u = td.to_device_field(vals)
     t = lambda x: torch.as_tensor(np.asarray(x))
+    plans = gs.generic_plans(sd.gather_ids, sd.bnode_global,
+                             sd.num_local_nodes, sd.num_boundary_global,
+                             "cpu")
     for am in (False, True):
         for aw in (False, True):
             got = td.dssum_field(u, apply_mask=am, apply_weight=aw)
@@ -250,7 +253,7 @@ def test_face_dssum_weight_mask_match_scatter(meshes):
                 bnode_global=t(sd.bnode_global).long(),
                 num_local_nodes=sd.num_local_nodes,
                 num_boundary_global=sd.num_boundary_global, comm=None,
-                apply_mask=am, apply_weight=aw)[0]
+                plans=plans, apply_mask=am, apply_weight=aw)[0]
             assert torch.equal(got, ref), (am, aw)
 
 

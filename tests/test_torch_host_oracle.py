@@ -1,10 +1,12 @@
 """The port's host f64 oracle (solvers/host_oracle.py) on the CPU: the
 twins of tests/test_host_oracle.py's operator parity and refinement
 tests, with the port's HostOperator bitwise equal to the JAX package's on
-the same mesh arrays, 3-D and 2-D (the port has no 2-D mesh yet: the 2-D
-branch runs on a JAX-built mesh's arrays). The JAX test of multi-shard
-refinement is 2-D; its twin runs the same steps on a 3-D mesh over 8
-shards."""
+the same mesh arrays, 3-D and 2-D (the 2-D branch on the JAX package's
+2-D mesh and on the port's own, where it also equals the port's 2-D
+Domain; the 2-D refinement twins are tests/test_torch_2d_composite.py's).
+The JAX test of multi-shard refinement is 2-D; its twin here runs the
+same steps on a 3-D mesh over 8 shards. The owned <-> global maps across
+two processes cover 3-D and 2-D partitions."""
 
 from functools import partial
 
@@ -75,8 +77,7 @@ def test_host_operator_matches_device_f64():
 
 
 def test_host_operator_2d_matches_reference():
-    # the 2-D branch on a JAX-built 2-D mesh's arrays (item 16 brings the
-    # port's own 2-D meshes)
+    # the 2-D branch on the JAX package's 2-D mesh and on the port's own
     jm = jg.kershaw_mesh((6, 5), 4, epsilon=0.3)
     assert jm.dim == 2 and jm.geom.shape[-1] == 3
     vals = np.random.default_rng(1).random(jm.num_points)
@@ -84,6 +85,20 @@ def test_host_operator_2d_matches_reference():
     # a constant field has a zero image (the operator's null space)
     assert np.abs(HostOperator(jm).apply(np.ones(jm.num_points))).max() \
         <= 1e-12 * np.abs(au).max()
+    tm = tg.kershaw_mesh((6, 5), 4, epsilon=0.3, device="cpu")
+    au_t = _bitwise_vs_reference(tm, vals)
+    np.testing.assert_allclose(au_t, au, rtol=0, atol=1e-12 * np.abs(au).max())
+    # the port's 2-D Domain (structured and generic) applies the same
+    # operator and sums the same nodes
+    host = HostOperator(tm)
+    for structured in (True, False):
+        dom = Domain(partition_mesh(tm, 1, structured=structured),
+                     dtype=torch.float64, device="cpu")
+        u = dom.to_device_field(vals.reshape(1, -1))
+        got = dom.from_device_field(dom.apply_operator(u)).reshape(-1)
+        assert np.allclose(got, au_t, rtol=1e-12, atol=1e-12)
+        got = dom.from_device_field(dom.dssum_field(u)).reshape(-1)
+        assert np.allclose(got, host.dssum(vals), rtol=1e-12, atol=1e-12)
 
 
 def test_host_refinement_multi_shard_p8():
@@ -161,9 +176,10 @@ def test_zero_rhs_takes_no_cycle():
 
 def test_owned_to_global_across_two_processes(tmp_path):
     # two gloo processes, each with its own shards (P = 4 uniform and
-    # generic, P = 2 ragged): each fills its shards' slots of the global
-    # field and one all_reduce sums the parts; equal to the one-process
-    # map, and global_to_owned gives each process its own rows back
+    # generic, P = 2 ragged; 3-D, and 2-D slabs and generic): each fills
+    # its shards' slots of the global field and one all_reduce sums the
+    # parts; equal to the one-process map, and global_to_owned gives each
+    # process its own rows back
     import json
     import os
     worker = os.path.join(mt.ROOT, "tests", "torch_multiprocess_worker.py")
@@ -172,4 +188,4 @@ def test_owned_to_global_across_two_processes(tmp_path):
                                   "host_oracle"], 2), timeout=120)
     for r in range(2):
         results = json.loads((tmp_path / f"oracle.rank{r}.json").read_text())
-        assert len(results) == 3 and all(ok for _, ok, _ in results), results
+        assert len(results) == 5 and all(ok for _, ok, _ in results), results

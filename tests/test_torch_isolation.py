@@ -163,6 +163,23 @@ _UNSTRUCTURED = textwrap.dedent("""
                             max_iterations=60, precond=pre),
                             host.apply(ustar), tolerance=1e-9)
     assert ref.converged, ref.history
+    # 2-D: the generic route, the scrambled composite at P = 1 and 2 (the
+    # scatter assembly) and the dense analysis oracle
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.analysis import assembled_operator_dense, compare_histories
+    scr2 = lambda o: tg.scramble_mesh(tg.kershaw_mesh((4, 4), o, 0.3,
+                                                      device="cpu"),
+                                      seed=4, device="cpu")
+    m2 = scr2(3)
+    for P in (1, 2):
+        d2 = Domain(partition_mesh(m2, P), dtype=torch.float32, device="cpu")
+        pre = composite_dd(d2, scr2, poly_reduction=2, fine_mesh=m2)
+        res = d2.solver(method="fgmres", max_iterations=60, precond=pre)(
+            d2.manufacture_rhs(d2.initial_function(4, seed=0)))
+        assert bool(res.converged), res.residual_history
+        its.append(res.iterations)
+    A = assembled_operator_dense(m2)
+    assert np.abs(A - A.T).max() < 1e-10
+    assert compare_histories([1.0, 0.1], [1.0, 0.1])["match"]
     assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
                    for k, v in sys.modules.items() if v is not None)
     print("unstructured iterations", its)
@@ -172,7 +189,8 @@ _UNSTRUCTURED = textwrap.dedent("""
 def test_unstructured_path_runs_with_jax_blocked():
     # scrambled (one and two shards, bf16 composite) and pebble-bed meshes
     # through the unstructured composite, inner="fem-amg" through its setup
-    # cache and the host f64 oracle, every new module imported
+    # cache and the host f64 oracle, the 2-D scrambled composite and the
+    # dense analysis oracle, every new module imported
     out = subprocess.run([sys.executable, "-c", _UNSTRUCTURED], cwd=_REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr

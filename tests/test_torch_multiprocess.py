@@ -9,11 +9,14 @@ Kershaw eps=0.3 (2, 2, 8), extent (1, 1, 4), N=3, composite r=2, f64
 FGMRES to 1e-8, in four modes run by one launch of the two workers
 (runtime/launch.py): structured, structured fem-amg, unstructured
 (scrambled, seed 3, element order kept, the per-process setup cache
-written and then hit) and unstructured fem-amg. Counts equal, histories
-at rtol 1e-9 / atol 1e-14 (the processes sum the dots in another order),
-max error as tests/test_multihost.py bounds it. Then ProcessComm's
-collectives against LocalComm's, and the boundary-first op_dssum against
-operator then dssum, bitwise."""
+written and then hit) and unstructured fem-amg; and two 2-D modes on
+Kershaw (4, 12), extent (1, 3), N=3: structured (slabs of 3 rows, the
+boundary-first split) and unstructured (scrambled, seed 3, element order
+kept, its per-process setup cache written and then hit). Counts equal,
+histories at rtol 1e-9 / atol 1e-14 (the processes sum the dots in
+another order), max error as tests/test_multihost.py bounds it. Then
+ProcessComm's collectives against LocalComm's, and the boundary-first
+op_dssum against operator then dssum, bitwise, in 3-D and 2-D."""
 
 import json
 import os
@@ -29,18 +32,22 @@ import multiprocess_twins as mt
 
 MESH = {"kind": "kershaw", "shape": [2, 2, 8], "order": 3, "epsilon": 0.3,
         "extent": [1.0, 1.0, 4.0]}
-MODES = {   # name -> (inner, scrambled, max error)
-    "structured": ("amg", False, 1e-7),
-    "structured-femamg": ("fem-amg", False, 5e-7),
-    "unstructured": ("amg", True, 1e-7),
-    "unstructured-femamg": ("fem-amg", True, 5e-7),
+MESH_2D = {"kind": "kershaw", "shape": [4, 12], "order": 3, "epsilon": 0.3,
+           "extent": [1.0, 3.0]}
+MODES = {   # name -> (inner, scrambled, max error, mesh)
+    "structured": ("amg", False, 1e-7, MESH),
+    "structured-femamg": ("fem-amg", False, 5e-7, MESH),
+    "unstructured": ("amg", True, 1e-7, MESH),
+    "unstructured-femamg": ("fem-amg", True, 5e-7, MESH),
+    "structured-2d": ("amg", False, 1e-7, MESH_2D),
+    "unstructured-2d": ("amg", True, 1e-7, MESH_2D),
 }
 
 
 def _run(name, cache_dir=None):
-    inner, scrambled, _ = MODES[name]
+    inner, scrambled, _, mesh = MODES[name]
     run = {"name": name,
-           "mesh": dict(MESH, scramble={"seed": 3, "permute": False}
+           "mesh": dict(mesh, scramble={"seed": 3, "permute": False}
                         if scrambled else None),
            "shards": 4, "dtype": "float64",
            "precond": {"kind": "composite", "poly_reduction": 2,
@@ -58,9 +65,12 @@ def solves(tmp_path_factory):
     four with every shard in it; returns (rank 0's record, the
     LocalComm records)."""
     tmp = tmp_path_factory.mktemp("mp_solves")
-    cache = tmp / "cache"
-    cache.mkdir()
-    runs = [_run(n, cache if n == "unstructured" else None) for n in MODES]
+    # the unstructured modes write their per-process setup caches, each
+    # into a directory of its own, and rebuild from them
+    caches = {n: tmp / n for n in ("unstructured", "unstructured-2d")}
+    for d in caches.values():
+        d.mkdir()
+    runs = [_run(n, caches.get(n)) for n in MODES]
     cfg, out = tmp / "config.json", tmp / "out.json"
     cfg.write_text(json.dumps({"device": "cpu", "threads": 1,
                                "timeout_seconds": 120, "runs": runs}))
@@ -76,8 +86,8 @@ def solves(tmp_path_factory):
         torch.set_num_threads(threads)
     mt.finish(procs, timeout=240)
     rec = json.loads(out.read_text())
-    return {r["name"]: r for r in rec["runs"]}, local, sorted(
-        p.name for p in cache.iterdir())
+    return {r["name"]: r for r in rec["runs"]}, local, {
+        n: sorted(p.name for p in d.iterdir()) for n, d in caches.items()}
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -96,12 +106,18 @@ def test_two_process_run_matches_local_comm(solves, mode):
     assert [p["owned"] for p in procs] == [[0, 1], [2, 3]]
     # gloo on CPU tensors moves them as they are: no staging copies
     assert all(p["comm"]["host_copies"] == 0 for p in procs)
-    if mode == "unstructured":
+    if mode in cached:
         # each process wrote its own payload and the rebuild loaded it
         assert [p["cache_hit"] for p in procs] == [True, True]
-        assert cached == ["setup_unstructured_pp0of2_o0-1.npz",
-                          "setup_unstructured_pp1of2_o2-3.npz"]
-    if not MODES[mode][1]:
+        assert cached[mode] == [f"setup_{mode}_pp0of2_o0-1.npz",
+                                f"setup_{mode}_pp1of2_o2-3.npz"]
+    if MODES[mode][3] is MESH_2D:
+        # a 2-D solve reaches no 3-D kernel (K1, K2, their twins), in any
+        # process
+        for launches in [p["launches"] for p in procs] + [ref["launches"]]:
+            assert not any(v for k, v in launches.items()
+                           if "stiffness" in k or "face_sum" in k)
+    elif not MODES[mode][1]:
         # the structured modes' outer operator ran the boundary-first
         # split: K1 launches (plain twins here) per outer iteration
         # include the two boundary layers of every apply
@@ -134,7 +150,7 @@ def test_collectives_match_local_comm(checks):
 def test_boundary_first_split_is_bitwise(checks):
     for rank, results in enumerate(checks):
         got = [r for r in results if r[0].startswith("split")]
-        assert len(got) == 4
+        assert len(got) == 8
         bad = [r for r in got if not r[1]]
         assert not bad, (rank, bad)
 

@@ -215,7 +215,11 @@ def test_structured_matches_generic(shape, N, P, kw):
                     bnode_global=t(sg.bnode_global, torch.int64),
                     num_local_nodes=sg.num_local_nodes,
                     num_boundary_global=sg.num_boundary_global,
-                    comm=LocalComm(P) if P > 1 else None, **kw).numpy()
+                    comm=LocalComm(P) if P > 1 else None,
+                    plans=tgs.generic_plans(sg.gather_ids, sg.bnode_global,
+                                            sg.num_local_nodes,
+                                            sg.num_boundary_global, "cpu"),
+                    **kw).numpy()
     gen = np.concatenate([gen[p, :int(sg.elem_valid[p].sum()) * npe]
                           for p in range(P)])
     jd = jdomain(jm, P)

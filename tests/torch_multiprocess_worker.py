@@ -9,7 +9,7 @@ from the same seed) and writes [[check, ok, detail], ...] to
 OUT.rank{RANK}.json. Checks: "collectives" (ProcessComm's ppermute,
 cyclic_shift, all_gather, slab_exchange_add uniform and ragged, psum and
 allreduce), "split" (the boundary-first op_dssum against operator then
-dssum, and against one process's Domain), "host_oracle" (owned_to_global
+dssum, and against one process's Domain, 3-D and 2-D), "host_oracle" (owned_to_global
 and global_to_owned across the processes against the one-process maps).
 """
 
@@ -83,8 +83,9 @@ def _domains(shape, P, dtype):
 
 
 def check_split(out):
-    # uniform slabs of 3 layers, and ragged ones of 4, 4, 3, 3
-    for shape in ((2, 2, 12), (2, 2, 14)):
+    # uniform slabs of 3 layers, and ragged ones of 4, 4, 3, 3; in 3-D and
+    # in 2-D (the slabs are element rows)
+    for shape in ((2, 2, 12), (2, 2, 14), (2, 12), (2, 14)):
         for dtype in (torch.float64, torch.float32):
             dp, dl = _domains(shape, 4, dtype)
             own = slice(dp.comm.first, dp.comm.first + dp.num_owned)
@@ -109,7 +110,8 @@ def check_split(out):
 
 def check_host_oracle(out):
     for shape, P, structured in (((2, 2, 8), 4, True), ((2, 2, 7), 2, True),
-                                 ((2, 2, 8), 4, False)):
+                                 ((2, 2, 8), 4, False), ((3, 8), 4, True),
+                                 ((3, 8), 4, False)):
         mesh = tg.kershaw_mesh(shape, 3, epsilon=0.3, device="cpu")
         sdp = partition_mesh(mesh, P, structured=structured,
                              owned=owned_shards(P))
