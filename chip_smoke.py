@@ -203,6 +203,30 @@ Phases, each printing JSON lines (any failure exits non-zero):
            scrambled unstructured composite (f32: residuals within 2e-2
            relative and r20 / r0 within 1.05x; f64: within 1e-9). No
            phase of these four may launch K1 or K2
+  cli      the main path as a user runs it (ROADMAP item 15a): (a) `python
+           -m <package> 7 6 1 1 --mesh kershaw --shape 16,16,16 --epsilon
+           0.3 --ptype bfloat16 --refine-tolerance 1e-10 --checkpoint DIR`
+           in a subprocess: the solve phase's count and history within
+           1e-6, refined to 1e-10 in at most the refine phase's cycles,
+           the meshes and the vertex chain written to DIR; (b) the same
+           command through __main__.main in this process with
+           --refine-mode host, reading DIR with the mesh generator and the
+           chain builder patched to raise: (a)'s history within 1e-6, the
+           host refinement to 1e-10; in both the timer report printed and
+           solve.run within 1.5x of the solve phase's best of 3, K1 and K2
+           launched (their signatures held to the twins)
+  cli-nek  the unstructured phase's mesh (scrambled, seed 7) at orders 7
+           and 1 written as a Nek export over 8 ranks (mesh/nek.py), read
+           back bitwise, then run_simulation with --mesh nek: the
+           unstructured phase's count, r0 within 1e-6, r1-r3 within 1e-4;
+           write and read seconds
+  cli-multiprocess  two `python -m <package> 7 6 1 1 ... --num-shards 4
+           --preconditioner jacobi --solver fcg` processes (gloo, a file
+           store): the count within 2% of the pmg phase's one-shard Jacobi
+           count, max|u-u*| within 2x of its, every timer vector 4 entries
+           in two measured pairs, the same in both processes; per-process
+           solve seconds. The CLI runs write their record and launches
+           through PRFDD_RECORD; their launches join the kernels line
 The kernels phase also holds K1 on the spmd phase's P = 5 stacks at every
 level, (5, 32, 128, 128) n = 8 to (5, 8, 32, 32) n = 2, and K2 on the
 P = 5 and P = 4 stacks of the same levels, against their twins (K2 also
@@ -258,6 +282,11 @@ K3_F32_TOL = 1e-5
 # on the card named here (PERF.md, the kernel table's "earlier time").
 # Constants from another run: they are printed beside this run's times on
 # the {"previous_design": ...} line only, never on a "kernels" line.
+# Readings of earlier phases that the CLI phases are held to in the same
+# run: "solve" (the main path's count, history and best of 3), "refine",
+# "host_refine", "jacobi" (the pmg phase's Jacobi line), "unstructured"
+# (its f32 count and history)
+READINGS = {}
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_MS = {
     ("stiffness_lattice_3d", (128, 128, 128)):
@@ -1090,6 +1119,7 @@ def run_pmg(torch, kernels, dom, mk, u_star, f):
             # far the host holds the card back on this path
             emit(profile_solve(torch, solve, f, phase="pmg-profile",
                                top_n=20))
+    READINGS["jacobi"] = lines["jacobi"]
     a, b = its[pmg_label], its["jacobi"]
     if not a < b // 2:
         raise AssertionError(f"p-multigrid took {a} iterations, Jacobi {b}: "
@@ -2170,6 +2200,8 @@ def run_unstructured(torch, kernels, dev):
               and rel[0] <= 1e-4 and plain_calls(counts) == 0 and k1 > 0
               and bool(torch.isfinite(res.u).all()))
         if ptype == torch.float32:
+            READINGS["unstructured"] = {"iterations": res.iterations,
+                                        "history": [float(x) for x in hist]}
             ok = ok and max(rel[1:4]) <= 5e-3
             emit(profile_solve(torch, solve, f, phase="unstructured-profile",
                                top_n=15))
@@ -3868,6 +3900,346 @@ def run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done):
         raise AssertionError(f"2-D checks failed: {FAILED_2D}")
 
 
+# ---------------------------------------------------------------------------
+# The driver and CLI (ROADMAP item 15a): the main path as a user runs it,
+# `python -m <package> ...`, held to the phases above in the same run.
+
+CLI_MAIN = ["7", "6", "1", "1", "--mesh", "kershaw", "--shape", "16,16,16",
+            "--epsilon", "0.3", "--ptype", "bfloat16",
+            "--refine-tolerance", "1e-10"]
+CLI_MP = ["7", "6", "1", "1", "--mesh", "kershaw", "--shape", "16,16,16",
+          "--num-shards", "4", "--preconditioner", "jacobi", "--solver", "fcg",
+          "--max-iterations", "1000"]
+# the unstructured phase's mesh: scrambled Kershaw 16^3 (seed 7), orders 7
+# and 1 (r = 6)
+CLI_NEK = {"shape": (16, 16, 16), "order": 7, "reduction": 6, "seed": 7,
+           "ranks": 8}
+CLI_TIMEOUT = 600
+CLI_HIST_RTOL = 1e-6         # a rerun of the same solve on the same card
+CLI_SOLVE_RATIO = 1.5        # solve.run against the solve phase's best
+CLI_NEK_R0 = 1e-6
+CLI_NEK_R13 = 1e-4
+CLI_MP_COUNT = 0.02          # of the pmg phase's one-shard Jacobi count
+CLI_MP_ERR_RATIO = 2.0
+
+
+def _cli_env(record, extra=None):
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env["PRFDD_RECORD"] = record
+    for k in ("PRFDD_COORDINATOR", "PRFDD_NUM_PROCESSES", "PRFDD_PROCESS_ID",
+              "PRFDD_BACKEND"):
+        env.pop(k, None)
+    env.update(extra or {})
+    return root, env
+
+
+def _add_signatures(kernels, signatures):
+    """Launch signatures another run recorded, for the next
+    check_launched."""
+    for name, sigs in signatures.items():
+        for sig in sigs:
+            getattr(kernels, name).launches.signatures.add(_as_tuple(sig))
+
+
+def run_cli_processes(kernels, argv, nproc, record, path_counts, extra=None):
+    """``python -m <package> argv`` in ``nproc`` processes (one group with
+    gloo and a file store beside ``record`` when nproc > 1); returns each
+    process's (stdout, record file, seconds). Their launches join
+    ``path_counts`` and their launch signatures the next check_launched;
+    fails on a non-zero exit or at CLI_TIMEOUT, stopping every process."""
+    import os
+    root, env = _cli_env(record, extra)
+    if nproc > 1:
+        env.update({"PRFDD_COORDINATOR": f"file://{record}.store",
+                    "PRFDD_NUM_PROCESSES": str(nproc),
+                    "PRFDD_BACKEND": "gloo"})
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", PKG] + argv, cwd=root,
+        env=dict(env, PRFDD_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(nproc)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(CLI_TIMEOUT - (time.time() - t0), 1))[0]
+                .decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.time() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"python -m {PKG} {' '.join(argv)} failed "
+                                 f"(rc {p.returncode}):\n{log[-4000:]}")
+    out = []
+    for r, log in enumerate(logs):
+        with open(f"{record}.rank{r}.json") as fh:
+            rec = json.load(fh)
+        add_counts(path_counts, rec["counts"])
+        _add_signatures(kernels, rec["signatures"])
+        out.append((log, rec, seconds))
+    return out
+
+
+def _timer_lines(text):
+    """The timer report's region lines of a CLI run's output."""
+    return [l.strip() for l in text.splitlines()
+            if l.lstrip().startswith(("setup", "solve", "mean:"))
+            and (" s  (x" in l or "mean:" in l)]
+
+
+def _setup_seconds(rec):
+    return {k: v["total_s"] for k, v in rec["timers"].items()
+            if k.startswith("setup")}
+
+
+def run_cli(torch, kernels, dev, path_counts, work):
+    """(a) the main path through the CLI in a subprocess, writing its
+    checkpoint; (b) the same command in this process with the host
+    refinement, reading the checkpoint with the mesh generator and the
+    vertex-chain builder patched to raise."""
+    import contextlib
+    import io
+    import os
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch import __main__ as cli
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.amg import composite as amgc
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers import subdomain as sub
+    ck = os.path.join(work, "checkpoint")
+    argv = CLI_MAIN + ["--checkpoint", ck]
+    solve, refine = READINGS["solve"], READINGS["refine"]
+    (log_a, rec_a, seconds_a), = run_cli_processes(
+        kernels, argv, 1, os.path.join(work, "cli_a"), path_counts)
+    a = rec_a["record"]
+    files = sorted(os.listdir(ck))
+
+    def rel(h, ref):
+        if len(h) != len(ref):
+            return float("inf")
+        return max(abs(x / y - 1.0) for x, y in zip(h, ref))
+
+    def boom(*args, **kw):
+        raise AssertionError("the CLI built setup a checkpoint holds")
+
+    saved = (tg.kershaw_mesh, amgc.vertex_q1_hierarchy,
+             sub.vertex_q1_hierarchy)
+    tg.kershaw_mesh = amgc.vertex_q1_hierarchy = boom
+    sub.vertex_q1_hierarchy = boom
+    record_b = os.path.join(work, "cli_b")
+    os.environ["PRFDD_RECORD"] = record_b
+    buf = io.StringIO()
+    kernels.reset_counts()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc_b = cli.main(argv + ["--refine-mode", "host"])
+    finally:
+        tg.kershaw_mesh, amgc.vertex_q1_hierarchy, \
+            sub.vertex_q1_hierarchy = saved
+        del os.environ["PRFDD_RECORD"]
+    torch.cuda.synchronize()
+    seconds_b = time.time() - t0
+    counts_b = kernels.counts()
+    add_counts(path_counts, counts_b)
+    with open(record_b + ".rank0.json") as fh:
+        rec_b = json.load(fh)
+    b = rec_b["record"]
+    # main() took this process's launch signatures into its record file,
+    # (a)'s among them: they go back for the next check_launched
+    _add_signatures(kernels, rec_b["signatures"])
+    log_b = buf.getvalue()
+    print(log_b, flush=True)
+    k1 = lambda c: sum(c.get("stiffness_lattice_3d", {}).values())
+    k2 = lambda c: sum(c.get("lattice_face_sum_3d", {}).values())
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    cfg = Config.from_args([x for x in CLI_MAIN if x not in ("--device",
+                                                             "cpu")])
+    tag = f"kershaw_{'x'.join(map(str, cfg.shape))}_e{cfg.epsilon}"
+    want_files = sorted(
+        [f"chain_{tag}_mc{cfg.max_coarse}.npz"]
+        + [f"mesh_{tag}_sNone_N{o}.npz"
+           for o in {1, *range(cfg.poly_degree, 0, -cfg.poly_reduction)}])
+    line = {"phase": "cli", "argv": " ".join(argv),
+            "a": {"seconds": seconds_a, "iterations": a["iterations"],
+                  "converged": a["converged"],
+                  "residuals": a["residual_history"][:6],
+                  "history_rel_diff_vs_solve": rel(a["residual_history"],
+                                                   solve["history"]),
+                  "solve_run_seconds": a["solve_seconds"],
+                  "solve_phase_seconds": solve["seconds"],
+                  "refined_rel_residual": a["refined_rel_residual"],
+                  "refined_cycles": a["refined_cycles"],
+                  "refine_phase": [refine["rel_residual"], refine["cycles"]],
+                  "setup_seconds": _setup_seconds(a),
+                  "checkpoint_files": files,
+                  "k1": k1(rec_a["counts"]), "k2": k2(rec_a["counts"]),
+                  "timer_report": _timer_lines(log_a)},
+            "b": {"seconds": seconds_b, "rc": rc_b,
+                  "iterations": b["iterations"],
+                  "history_rel_diff_vs_a": rel(b["residual_history"],
+                                               a["residual_history"]),
+                  "solve_run_seconds": b["solve_seconds"],
+                  "refined_rel_residual": b["refined_rel_residual"],
+                  "refined_cycles": b["refined_cycles"],
+                  "host_refine_phase": READINGS["host_refine"][
+                      "rel_residual"],
+                  "setup_seconds": _setup_seconds(b),
+                  "launches": counts_b,
+                  "timer_report": _timer_lines(log_b)}}
+    emit(line)
+    ratio = lambda x: x / solve["seconds"]
+    ok = (a["converged"] and a["iterations"] == solve["iterations"]
+          and line["a"]["history_rel_diff_vs_solve"] <= CLI_HIST_RTOL
+          and a["refined_rel_residual"] <= 1e-10
+          and a["refined_cycles"] <= refine["cycles"]
+          and files == want_files
+          and k1(rec_a["counts"]) > 0 and k2(rec_a["counts"]) > 0
+          and plain_calls(rec_a["counts"]) == 0
+          and rc_b == 0 and b["converged"]
+          and line["b"]["history_rel_diff_vs_a"] <= CLI_HIST_RTOL
+          and b["refined_rel_residual"] <= 1e-10
+          and k1(counts_b) > 0 and k2(counts_b) > 0
+          and plain_calls(counts_b) == 0
+          and all("solve.run:" in " ".join(t) for t in
+                  (line["a"]["timer_report"], line["b"]["timer_report"]))
+          and all(1 / CLI_SOLVE_RATIO <= ratio(x) <= CLI_SOLVE_RATIO
+                  for x in (a["solve_seconds"], b["solve_seconds"])))
+    if not ok:
+        raise AssertionError(f"the cli phase failed its checks: {line}")
+
+
+def run_cli_nek(torch, kernels, dev, path_counts, work):
+    """The unstructured phase's mesh written as a Nek export over 8 ranks
+    at orders 7 and 1, read back bitwise, then solved through the driver
+    (--mesh nek): the unstructured phase's count and residuals."""
+    import io
+    import os
+    import numpy as np
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh, scramble_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import nek
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.driver import run_simulation
+    d = os.path.join(work, "nek")
+    levels = {}
+    N, r = CLI_NEK["order"], CLI_NEK["reduction"]
+    for o in sorted({1, *range(N, 0, -r)}, reverse=True):
+        mesh = scramble_mesh(kershaw_mesh(CLI_NEK["shape"], o, epsilon=0.3,
+                                          device=dev), seed=CLI_NEK["seed"],
+                             device=dev)
+        t0 = time.time()
+        nek.write_nek_dir(d, mesh, num_ranks=CLI_NEK["ranks"])
+        write_s = time.time() - t0
+        t0 = time.time()
+        back = nek.read_nek_dir(d, o, device=dev)
+        read_s = time.time() - t0
+        levels[o] = {
+            "write_seconds": write_s, "read_seconds": read_s,
+            "bitwise": {k: bool(np.array_equal(getattr(back, k),
+                                               getattr(mesh, k)))
+                        for k in ("coords", "glo_num", "dirichlet_mask",
+                                  "node_degree", "geom")},
+            "mass_max_rel_diff": float(np.abs(back.mass - mesh.mass).max()
+                                       / np.abs(mesh.mass).max())}
+        del mesh, back
+    cfg = Config(mesh="nek", nek_dir=d, poly_degree=N, poly_reduction=r,
+                 inner="amg")
+    out = io.StringIO()
+    kernels.reset_counts()
+    t0 = time.time()
+    rec = run_simulation(cfg, out=out, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    ref = READINGS["unstructured"]
+    h, hr = rec["residual_history"], ref["history"]
+    rel = [abs(x / y - 1.0) for x, y in zip(h[:4], hr[:4])]
+    line = {"phase": "cli-nek", "ranks": CLI_NEK["ranks"], "levels": levels,
+            "seconds": seconds, "iterations": rec["iterations"],
+            "unstructured_iterations": ref["iterations"],
+            "converged": rec["converged"], "residuals": h[:6],
+            "unstructured_residuals": hr[:6], "rel_diff": rel,
+            "max_error": rec["max_error"], "setup_seconds": _setup_seconds(rec),
+            "solve_run_seconds": rec["solve_seconds"], "launches": counts}
+    emit(line)
+    print(out.getvalue(), flush=True)
+    ok = (all(all(v["bitwise"].values()) for v in levels.values())
+          and rec["converged"] and rec["iterations"] == ref["iterations"]
+          and len(rel) == 4 and rel[0] <= CLI_NEK_R0
+          and max(rel[1:]) <= CLI_NEK_R13
+          and sum(counts["stiffness_lattice_3d"].values()) > 0
+          and sum(counts["csr_spmv"].values()) > 0
+          and plain_calls(counts) == 0)
+    if not ok:
+        raise AssertionError(f"the cli-nek phase failed its checks: {line}")
+
+
+def run_cli_multiprocess(torch, kernels, dev, path_counts, work):
+    """Two `python -m <package>` processes, gloo, 2 of P = 4 shards each:
+    Jacobi FCG on the main path's mesh against the pmg phase's one-shard
+    Jacobi run; the timer report's per-shard vectors from the two
+    processes' own values."""
+    import os
+    jac = READINGS["jacobi"]
+    runs = run_cli_processes(kernels, CLI_MP, MP_PROCESSES,
+                             os.path.join(work, "cli_mp"), path_counts)
+    procs, ok = [], True
+    for r, (log, rec, seconds) in enumerate(runs):
+        a = rec["record"]
+        vecs = [l.split("[")[1].split("]")[0].split()
+                for l in _timer_lines(log) if l.startswith("mean:")]
+        procs.append({
+            "rank": r, "iterations": a["iterations"],
+            "converged": a["converged"], "max_error": a["max_error"],
+            "solve_run_seconds": a["solve_seconds"],
+            "setup_seconds": _setup_seconds(a),
+            "residuals": a["residual_history"][:4],
+            "timer_vectors": vecs,
+            "k1": sum(rec["counts"]["stiffness_lattice_3d"].values()),
+            "k2": sum(rec["counts"]["lattice_face_sum_3d"].values())})
+        ok = ok and (a["converged"]
+                     and abs(a["iterations"] - jac["iterations"])
+                     <= CLI_MP_COUNT * jac["iterations"]
+                     and 1 / CLI_MP_ERR_RATIO <= a["max_error"] / jac["max_err"]
+                     <= CLI_MP_ERR_RATIO
+                     and len(vecs) >= 5
+                     and all(len(v) == 4 and v[0] == v[1] and v[2] == v[3]
+                             for v in vecs)
+                     and procs[-1]["k1"] > 0 and procs[-1]["k2"] > 0
+                     and plain_calls(rec["counts"]) == 0)
+    ok = ok and (procs[0]["timer_vectors"] == procs[1]["timer_vectors"]
+                 and runs[0][1]["record"]["residual_history"]
+                 == runs[1][1]["record"]["residual_history"])
+    line = {"phase": "cli-multiprocess", "argv": " ".join(CLI_MP),
+            "processes": MP_PROCESSES, "backend": "gloo",
+            "seconds": runs[0][2], "pmg_phase_jacobi": {
+                "iterations": jac["iterations"], "max_err": jac["max_err"],
+                "solve_seconds": jac["solve_seconds"]},
+            "per_process": procs, "ok": bool(ok)}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"the cli-multiprocess phase failed its "
+                             f"checks: {line}")
+
+
+def run_cli_phases(torch, kernels, dev, path_counts, phase_done):
+    """The three CLI phases, in order, in one temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        run_cli(torch, kernels, dev, path_counts, work)
+        phase_done("cli")
+        run_cli_nek(torch, kernels, dev, path_counts, work)
+        phase_done("cli-nek")
+        run_cli_multiprocess(torch, kernels, dev, path_counts, work)
+        phase_done("cli-multiprocess")
+
+
 def run_host_refine(torch, kernels, dom, mesh, solve, u_star, device_ref):
     """The main path's f32 solve as the correction engine of the host f64
     oracle (solvers/host_oracle.py) on the same mesh, to 1e-10, beside
@@ -3895,6 +4267,7 @@ def run_host_refine(torch, kernels, dom, mesh, solve, u_star, device_ref):
             "host_setup_seconds": prep_s, "host_apply_seconds": apply_s,
             "device_refine": device_ref, "launches": counts}
     emit(line)
+    READINGS["host_refine"] = line
     if not (rr.converged and rr.rel_residual <= 1e-10
             and rr.cycles <= 4 and plain_calls(counts) == 0
             and sum(counts["stiffness_lattice_3d"].values()) > 0
@@ -4037,6 +4410,8 @@ def main():
             and sum(solve_counts["stiffness_lattice_3d"].values()) > 0
             and sum(solve_counts["lattice_face_sum_3d"].values()) > 0):
         raise AssertionError(f"main-path solve failed its checks: {line}")
+    READINGS["solve"] = {"iterations": its, "seconds": best,
+                         "history": [float(x) for x in hist]}
     phase_done("solve")
     emit(profile_solve(torch, solve, f))
     phase_done("profile")
@@ -4063,6 +4438,7 @@ def main():
     device_ref = {"rel_residual": rr.rel_residual, "cycles": rr.cycles,
                   "history": rr.history, "max_error": err64,
                   "seconds": ref_s}
+    READINGS["refine"] = device_ref
     del dom64, u64, f64, rr
     add_counts(path_counts, run_host_refine(torch, kernels, dom, mesh, solve,
                                             u_star, device_ref))
@@ -4094,6 +4470,7 @@ def main():
     phase_done("multiprocess")
     run_multiprocess_2d(torch, kernels, dev, path_counts)
     phase_done("multiprocess-2d")
+    run_cli_phases(torch, kernels, dev, path_counts, phase_done)
 
     entries = []
     for (name, dt), t in sorted(timed.items()):

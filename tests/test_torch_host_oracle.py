@@ -189,3 +189,36 @@ def test_owned_to_global_across_two_processes(tmp_path):
     for r in range(2):
         results = json.loads((tmp_path / f"oracle.rank{r}.json").read_text())
         assert len(results) == 5 and all(ok for _, ok, _ in results), results
+
+
+# ---- the driver's host refinement mode (tests/test_host_oracle.py) ----
+
+def test_driver_host_refine_mode():
+    import io
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.driver import run_simulation
+    out = io.StringIO()
+    cfg = Config(mesh="kershaw", shape=(4, 4, 4), poly_degree=3,
+                 poly_reduction=2, max_iterations=60,
+                 refine_tolerance=1e-7, refine_mode="host")
+    rec = run_simulation(cfg, out=out, device="cpu")
+    assert rec["converged"]
+    assert rec["refined_converged"]
+    assert rec["refined_rel_residual"] < 1e-7
+    assert rec["refined_max_error"] < 1e-6
+    text = out.getvalue()
+    assert "refinement cycle:  0  rel residual: 1.000000e+00" in text
+    assert "f64 refinement (host): rel_res=" in text
+
+
+def test_driver_host_refine_mode_p8():
+    import io
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.driver import run_simulation
+    cfg = Config(mesh="kershaw", shape=(4, 4, 16), poly_degree=3,
+                 poly_reduction=2, max_iterations=120, num_shards=8,
+                 refine_tolerance=1e-7, refine_mode="host")
+    rec = run_simulation(cfg, out=io.StringIO(), device="cpu")
+    assert rec["converged"]
+    assert rec["refined_converged"]
+    assert rec["refined_rel_residual"] < 1e-7

@@ -39,6 +39,9 @@ _ISOLATED = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     assert port.__name__ + ".runtime.comm" in names
+    for new in ("__main__", "runtime.config", "runtime.driver",
+                "runtime.timer", "runtime.sweep", "mesh.nek", "io.fields"):
+        assert port.__name__ + "." + new in names, new
     import torch
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
@@ -246,6 +249,61 @@ def test_launcher_workers_run_with_jax_blocked(tmp_path):
     assert all("worker clean" in o for o in outs), outs
     rec = json.loads(out.read_text())
     assert [r["converged"] for r in rec["runs"]] == [True, True]
+
+
+_DRIVER = textwrap.dedent("""
+    import importlib.abc, io, os, sys, tempfile
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith("jax.") or "_tpu" in name:
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.modules["jax"] = None
+    sys.meta_path.insert(0, Block())
+    import torch
+    torch.set_num_threads(1)
+    pkg = "polynomial_reduction_with_full_domain_decomposition_preconditioner_torch"
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.__main__ import main
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh import generator as tg, nek
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.driver import run_simulation
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.sweep import sweep
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.timer import Timer, profile_trace
+    assert main(["2", "1", "--mesh", "box", "--shape", "2,2,4",
+                 "--preconditioner", "jacobi", "--device", "cpu"]) == 0
+    with tempfile.TemporaryDirectory() as d:
+        for o in (3, 1):
+            nek.write_nek_dir(d, tg.scramble_mesh(
+                tg.kershaw_mesh((2, 2, 4), o, 0.3, device="cpu"), seed=2,
+                permute=False, device="cpu"), num_ranks=2)
+        cfg = Config(mesh="nek", nek_dir=d, poly_degree=3, poly_reduction=2,
+                     max_iterations=60, output=os.path.join(d, "u.vtk"),
+                     checkpoint=os.path.join(d, "ck"))
+        rec = run_simulation(cfg, out=io.StringIO(), device="cpu")
+        assert rec["converged"] and os.path.getsize(os.path.join(d, "u.vtk"))
+        res = sweep(Config(mesh="box", shape=(2, 2, 4), poly_degree=2,
+                           preconditioner="jacobi"), {"solver": ["fcg"]},
+                    os.path.join(d, "sweep"), device="cpu")
+        assert res[0]["converged"]
+        with profile_trace(os.path.join(d, "trace")):
+            torch.ones(3).sum()
+        assert os.path.exists(os.path.join(d, "trace", "trace.json"))
+    assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
+                   for k, v in sys.modules.items() if v is not None)
+    print("driver clean", rec["iterations"])
+""")
+
+
+def test_driver_and_cli_run_with_jax_blocked():
+    # the CLI's main, the driver on a Nek export with field output and a
+    # checkpoint, the sweep and the profiler trace, neither importing jax
+    # nor the JAX package
+    out = subprocess.run([sys.executable, "-c", _DRIVER], cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "driver clean" in out.stdout
 
 
 def test_no_jax_or_reference_imports_in_sources():

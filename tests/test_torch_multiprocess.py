@@ -133,7 +133,7 @@ def checks(tmp_path_factory):
     out = tmp / "checks"
     worker = os.path.join(mt.ROOT, "tests", "torch_multiprocess_worker.py")
     procs = mt.start(lambda r: [worker, str(r), "2", init, str(out),
-                                "collectives", "split"], 2)
+                                "collectives", "split", "timer"], 2)
     mt.finish(procs, timeout=180)
     return [json.loads((tmp / f"checks.rank{r}.json").read_text())
             for r in range(2)]
@@ -141,7 +141,8 @@ def checks(tmp_path_factory):
 
 def test_collectives_match_local_comm(checks):
     for rank, results in enumerate(checks):
-        got = [r for r in results if not r[0].startswith("split")]
+        got = [r for r in results
+               if not r[0].startswith(("split", "timer"))]
         assert len(got) == 2 * 10         # P = 4 and P = 2 (one shard each)
         bad = [r for r in got if not r[1]]
         assert not bad, (rank, bad)
@@ -153,6 +154,76 @@ def test_boundary_first_split_is_bitwise(checks):
         assert len(got) == 8
         bad = [r for r in got if not r[1]]
         assert not bad, (rank, bad)
+
+
+def test_timer_vectors_are_measured_per_process(checks):
+    # tests/test_multihost.py:80-88: the probe sleeps 50 ms on process 0
+    # and 100 ms on process 1; the all-gather surfaces both values, not
+    # one replicated, and the report expands them to the 4-shard vector
+    for rank, results in enumerate(checks):
+        (_, ok, got), = [r for r in results if r[0] == "timer"]
+        assert ok
+        tv = got["vec"]
+        assert len(tv) == 2 and tv[1] > tv[0] + 0.02, tv
+        assert tv[0] >= 0.045 and tv[1] >= 0.095, tv
+        assert (f"{tv[0]:.6f} {tv[0]:.6f} {tv[1]:.6f} {tv[1]:.6f}"
+                in got["report"]), got["report"]
+    assert checks[0][-1][2]["vec"] == checks[1][-1][2]["vec"]
+
+
+# the CLI as a user runs it across two processes: a small f64 composite
+CLI_ARGV = ["3", "2", "1", "1", "--mesh", "kershaw", "--shape", "2,2,8",
+            "--num-shards", "4", "--stype", "float64", "--ptype", "float64",
+            "--tolerance", "1e-8", "--max-iterations", "100"]
+
+
+def test_cli_across_two_processes_matches_one(tmp_path):
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.driver import run_simulation
+    import io
+    import subprocess
+    import sys
+    record = tmp_path / "record"
+    init = mt.store(tmp_path)
+    env = dict(os.environ, PYTHONPATH=mt.ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1",
+               PRFDD_COORDINATOR=init, PRFDD_NUM_PROCESSES="2",
+               PRFDD_BACKEND="gloo", PRFDD_RECORD=str(record))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", mt.LAUNCH.rsplit(".", 2)[0]] + CLI_ARGV
+        + ["--device", "cpu"], env=dict(env, PRFDD_PROCESS_ID=str(r)),
+        cwd=mt.ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = run_simulation(Config.from_args(CLI_ARGV), out=io.StringIO(),
+                             device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    outs = mt.finish(procs, timeout=240)
+    recs = [json.loads((tmp_path / f"record.rank{r}.json").read_text())
+            for r in range(2)]
+    assert one["converged"]
+    for out, rec in zip(outs, recs):
+        two = rec["record"]
+        assert two["converged"] and "converged: True" in out
+        assert two["iterations"] == one["iterations"]
+        np.testing.assert_allclose(two["residual_history"],
+                                   one["residual_history"], rtol=1e-9,
+                                   atol=1e-14)
+        # the timer report's per-shard vectors: 4 entries from the two
+        # processes' own values
+        line = next(l for l in out.splitlines()
+                    if l.strip().startswith("mean:"))
+        assert len(line.split("[")[1].split("]")[0].split()) == 4
+        assert sum(rec["counts"]["stiffness_lattice_3d_plain"].values()) > 0
+    assert recs[0]["record"]["residual_history"] == \
+        recs[1]["record"]["residual_history"]
+    # each process reports max|u - u*| over its own shards, as the JAX
+    # driver does: together they are the one-process run's
+    err = max(rec["record"]["max_error"] for rec in recs)
+    assert err == pytest.approx(one["max_error"], rel=1e-6)
 
 
 def test_owned_shards_and_backend_are_explicit(monkeypatch):

@@ -10,7 +10,10 @@ OUT.rank{RANK}.json. Checks: "collectives" (ProcessComm's ppermute,
 cyclic_shift, all_gather, slab_exchange_add uniform and ragged, psum and
 allreduce), "split" (the boundary-first op_dssum against operator then
 dssum, and against one process's Domain, 3-D and 2-D), "host_oracle" (owned_to_global
-and global_to_owned across the processes against the one-process maps).
+and global_to_owned across the processes against the one-process maps),
+"timer" (a Timer region that sleeps 50 ms on rank 0 and 100 ms on rank 1,
+the per-process totals gathered and the 4-shard report; its detail is
+{"vec", "report"}).
 """
 
 import json
@@ -130,6 +133,19 @@ def check_host_oracle(out):
                     float(np.abs(got - want).max())])
 
 
+def check_timer(out, rank):
+    import time
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.timer import Timer
+    tmr = Timer(sync=False)
+    tmr.start("probe")
+    time.sleep(0.05 * (rank + 1))
+    tmr.stop("probe")
+    names, mat = tmr.gather_process_totals()
+    out.append(["timer", list(names) == ["probe"],
+                {"vec": mat[:, names.index("probe")].tolist(),
+                 "report": tmr.report(num_shards=4)}])
+
+
 def main():
     rank, nproc, coordinator, out_path = (int(sys.argv[1]), int(sys.argv[2]),
                                           sys.argv[3], sys.argv[4])
@@ -137,7 +153,8 @@ def main():
     initialize_multihost(coordinator, nproc, rank, "gloo",
                          timeout_seconds=120)
     checks = {"collectives": check_collectives, "split": check_split,
-              "host_oracle": check_host_oracle}
+              "host_oracle": check_host_oracle,
+              "timer": lambda out: check_timer(out, rank)}
     out = []
     for name in sys.argv[5:]:
         checks[name](out)
