@@ -137,6 +137,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
            configuration (scrambled (8, 8, 8) N=2 r=1, seed 11,
            permute=False, 4 shards, f64) with the far field compressed
            and not: both converge to 1e-8, counts +-1 of the CPU's (19)
+  (the 2-D phases below, small-2d to unstructured-spmd-2d and
+  multiprocess-2d, run in a child process of the script, beside the
+  phases from spmd-ops to unstructured-femamg; the child's output is
+  printed when it has ended, with a "2-D suite" line of its phases'
+  seconds)
   small-2d  the structured 2-D path, Kershaw (6, 6) N=7 f64 on the card
            against the CPU: FGMRES with composite_dd(poly_reduction=3) and
            FCG with pmultigrid(poly_reduction=3), equal counts, the
@@ -213,8 +218,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
            --refine-mode host, reading DIR with the mesh generator and the
            chain builder patched to raise: (a)'s history within 1e-6, the
            host refinement to 1e-10; in both the timer report printed and
-           solve.run within 1.5x of the solve phase's best of 3, K1 and K2
-           launched (their signatures held to the twins)
+           solve.run within 1.5x of the main path's solve timed by CUDA
+           events just before and just after that run (best of 3 each,
+           their mean), K1 and K2 launched (their signatures held to the
+           twins)
   cli-nek  the unstructured phase's mesh (scrambled, seed 7) at orders 7
            and 1 written as a Nek export over 8 ranks (mesh/nek.py), read
            back bitwise, then run_simulation with --mesh nek: the
@@ -227,6 +234,21 @@ Phases, each printing JSON lines (any failure exits non-zero):
            in two measured pairs, the same in both processes; per-process
            solve seconds. The CLI runs write their record and launches
            through PRFDD_RECORD; their launches join the kernels line
+  phases   the composite's instrumentation (ROADMAP item 15b): (a)
+           runtime/phases.phase_report on the main path (CLI_MAIN's
+           configuration, one shard, 10 outer iterations), the 23 rows of
+           the CPU test's list for that path, every value finite, every
+           region row >= 0, "total per iteration" within 0.67-1.5x of the
+           main path's solve an iteration, timed again just before and
+           just after the report (their mean); printed in ms beside the card's name and power limit; (b) Domain.phase_chain over every kind on
+           the composite over P = 4 shards (f32, inner "amg"), (c) the
+           same on the unstructured phase's mesh: every exposed kind
+           finite, the others (tree_levels; tree_rings, tree_coarse)
+           absent; (d) CLI_MAIN with --output-composite in a subprocess:
+           group 0 bitwise the main path's tree_rhs(f); (e) two CLI
+           processes (gloo) over P = 4 with --output-composite: their four
+           files bitwise (bf16 as uint16) the in-process P = 4 dump's.
+           (d) and (e) run beside (b) and (c), (a) alone after them.
 The kernels phase also holds K1 on the spmd phase's P = 5 stacks at every
 level, (5, 32, 128, 128) n = 8 to (5, 8, 32, 32) n = 2, and K2 on the
 P = 5 and P = 4 stacks of the same levels, against their twins (K2 also
@@ -243,8 +265,9 @@ Then one {"kernels": [...]} line (each kernel variant: its launches on
 the driven paths, error, warm and cold time, plain time, bound and the
 share of the bound it reaches: this run's numbers only), one
 {"previous_design": ...} line (this run's warm times beside the constant
-table of the previous designs' times), the seconds each phase took and,
-last, the {"ok": true, "device": {...}}
+table of the previous designs' times), the seconds each phase took
+(the 2-D suite's under "beside") and, last, the {"ok": true, "device":
+{...}}
 line.
 """
 
@@ -1654,14 +1677,14 @@ def composite_launches(torch, kernels, pre, dom, f):
     """K1 launches of one composite operator apply, and K2 launches (all,
     and on shard stacks) of one masked composite dssum, on the composite
     right-hand side of f."""
-    fn = pre.build(dom.arrays, pre.extra, dom._ops())
-    parts = fn.tree_rhs(f)
+    fn = pre.build(dom.arrays, pre.extra, dom._ops()).parts
+    parts = fn["tree_rhs"](f)
     kernels.reset_counts()
-    fn.comp_operator(parts)
+    fn["comp_operator"](parts)
     torch.cuda.synchronize()
     k1 = sum(kernels.counts()["stiffness_lattice_3d"].values())
     kernels.reset_counts()
-    fn.comp_dssum(parts)
+    fn["comp_dssum"](parts)
     torch.cuda.synchronize()
     c = kernels.counts()
     kernels.reset_counts()
@@ -3900,6 +3923,95 @@ def run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done):
         raise AssertionError(f"2-D checks failed: {FAILED_2D}")
 
 
+# The 2-D phases share nothing with the 3-D ones and check no time, and the
+# script is host-bound (the card idles most of every solve), so main() runs
+# them in a process of their own beside the 3-D phases from spmd-ops to
+# unstructured-femamg: after the phases whose kernel times the kernels line
+# reports, and before the timed CLI and phases windows.
+SUITE_2D_TIMEOUT = 900
+
+
+def run_2d_suite(record):
+    """Every 2-D phase in this process, each followed by check_launched as
+    in main(); writes the launches and each phase's seconds to ``record``
+    (JSON). Run by ``start_2d_suite``."""
+    import torch
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import cuda_lib, kernels
+    cuda_lib.build()
+    cuda_lib.load()
+    dev = torch.device("cuda")
+    path_counts, phase_seconds, checked, clock = {}, {}, set(), [time.time()]
+
+    def phase_done(name):
+        check_launched(torch, kernels, dev, name, checked)
+        torch.cuda.synchronize()
+        now = time.time()
+        phase_seconds[name] = now - clock[0]
+        clock[0] = now
+
+    run_2d_phases(torch, kernels, dev, path_counts, phase_done)
+    run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done)
+    run_multiprocess_2d(torch, kernels, dev, path_counts)
+    phase_done("multiprocess-2d")
+    with open(record, "w") as fh:
+        json.dump({"path_counts": path_counts, "phase_seconds": phase_seconds},
+                  fh)
+
+
+def start_2d_suite():
+    """``run_2d_suite`` in a child process (its own session, so that
+    ``stop_2d_suite`` also stops the workers of multiprocess-2d), its
+    output to a file that ``finish_2d_suite`` prints."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_2d_")
+    record = os.path.join(work, "record.json")
+    log = open(os.path.join(work, "log.txt"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.run_2d_suite({record!r})"],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    return {"proc": proc, "log": log, "work": work, "record": record,
+            "t0": time.time()}
+
+
+def stop_2d_suite(suite):
+    """Kill the child and its workers if they still run; remove its files."""
+    import os
+    import shutil
+    import signal
+    if suite["proc"].poll() is None:
+        os.killpg(suite["proc"].pid, signal.SIGKILL)
+        suite["proc"].wait()
+    suite["log"].close()
+    shutil.rmtree(suite["work"], ignore_errors=True)
+
+
+def finish_2d_suite(suite):
+    """Wait for the child; print its output; fail if it failed. Returns its
+    launches and each 2-D phase's seconds."""
+    proc = suite["proc"]
+    try:
+        rc = proc.wait(timeout=max(
+            SUITE_2D_TIMEOUT - (time.time() - suite["t0"]), 1))
+    except subprocess.TimeoutExpired:
+        rc = None
+    suite["log"].seek(0)
+    text = suite["log"].read()
+    print(text, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"the 2-D phases failed (rc {rc}, "
+                             f"{SUITE_2D_TIMEOUT} s allowed):\n"
+                             f"{text[-4000:]}")
+    with open(suite["record"]) as fh:
+        out = json.load(fh)
+    emit({"phase": "2-D suite", "seconds": time.time() - suite["t0"],
+          "phase_seconds": out["phase_seconds"]})
+    return out["path_counts"], out["phase_seconds"]
+
+
 # ---------------------------------------------------------------------------
 # The driver and CLI (ROADMAP item 15a): the main path as a user runs it,
 # `python -m <package> ...`, held to the phases above in the same run.
@@ -3916,7 +4028,8 @@ CLI_NEK = {"shape": (16, 16, 16), "order": 7, "reduction": 6, "seed": 7,
            "ranks": 8}
 CLI_TIMEOUT = 600
 CLI_HIST_RTOL = 1e-6         # a rerun of the same solve on the same card
-CLI_SOLVE_RATIO = 1.5        # solve.run against the solve phase's best
+CLI_SOLVE_RATIO = 1.5        # solve.run against the main path's solve
+                             # timed around it
 CLI_NEK_R0 = 1e-6
 CLI_NEK_R13 = 1e-4
 CLI_MP_COUNT = 0.02          # of the pmg phase's one-shard Jacobi count
@@ -3950,17 +4063,30 @@ def run_cli_processes(kernels, argv, nproc, record, path_counts, extra=None):
     process's (stdout, record file, seconds). Their launches join
     ``path_counts`` and their launch signatures the next check_launched;
     fails on a non-zero exit or at CLI_TIMEOUT, stopping every process."""
-    import os
+    return finish_cli_processes(
+        kernels, start_cli_processes(argv, nproc, record, extra),
+        path_counts)
+
+
+def start_cli_processes(argv, nproc, record, extra=None):
+    """Start ``run_cli_processes``' processes; ``finish_cli_processes``
+    waits for them."""
     root, env = _cli_env(record, extra)
     if nproc > 1:
         env.update({"PRFDD_COORDINATOR": f"file://{record}.store",
                     "PRFDD_NUM_PROCESSES": str(nproc),
                     "PRFDD_BACKEND": "gloo"})
-    t0 = time.time()
     procs = [subprocess.Popen(
         [sys.executable, "-m", PKG] + argv, cwd=root,
         env=dict(env, PRFDD_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(nproc)]
+    return argv, record, procs, time.time()
+
+
+def finish_cli_processes(kernels, started, path_counts, rcs=(0,)):
+    """Wait for ``start_cli_processes``' processes; fails on an exit code
+    not in ``rcs`` (the CLI exits 1 where the solve did not converge)."""
+    argv, record, procs, t0 = started
     logs = []
     try:
         for p in procs:
@@ -3974,7 +4100,7 @@ def run_cli_processes(kernels, argv, nproc, record, path_counts, extra=None):
                 p.communicate()
     seconds = time.time() - t0
     for p, log in zip(procs, logs):
-        if p.returncode != 0:
+        if p.returncode not in rcs:
             raise AssertionError(f"python -m {PKG} {' '.join(argv)} failed "
                                  f"(rc {p.returncode}):\n{log[-4000:]}")
     out = []
@@ -3999,11 +4125,15 @@ def _setup_seconds(rec):
             if k.startswith("setup")}
 
 
-def run_cli(torch, kernels, dev, path_counts, work):
+def run_cli(torch, kernels, dev, path_counts, work, solve_now):
     """(a) the main path through the CLI in a subprocess, writing its
     checkpoint; (b) the same command in this process with the host
     refinement, reading the checkpoint with the mesh generator and the
-    vertex-chain builder patched to raise."""
+    vertex-chain builder patched to raise. Each run's solve.run is held
+    to ``solve_now()``, the main path's solve in this process timed just
+    before and just after that run (the mean of the two): the host's
+    speed drifts within a run (PERF.md §7), so the solve phase's reading
+    of many minutes before is no yardstick."""
     import contextlib
     import io
     import os
@@ -4014,8 +4144,10 @@ def run_cli(torch, kernels, dev, path_counts, work):
     ck = os.path.join(work, "checkpoint")
     argv = CLI_MAIN + ["--checkpoint", ck]
     solve, refine = READINGS["solve"], READINGS["refine"]
+    yard = [solve_now()]
     (log_a, rec_a, seconds_a), = run_cli_processes(
         kernels, argv, 1, os.path.join(work, "cli_a"), path_counts)
+    yard.append(solve_now())
     a = rec_a["record"]
     files = sorted(os.listdir(ck))
 
@@ -4047,6 +4179,7 @@ def run_cli(torch, kernels, dev, path_counts, work):
     seconds_b = time.time() - t0
     counts_b = kernels.counts()
     add_counts(path_counts, counts_b)
+    yard.append(solve_now())
     with open(record_b + ".rank0.json") as fh:
         rec_b = json.load(fh)
     b = rec_b["record"]
@@ -4072,6 +4205,9 @@ def run_cli(torch, kernels, dev, path_counts, work):
                   "history_rel_diff_vs_solve": rel(a["residual_history"],
                                                    solve["history"]),
                   "solve_run_seconds": a["solve_seconds"],
+                  "yardstick_seconds": yard[:2],
+                  "solve_run_over_yardstick": a["solve_seconds"]
+                  / (sum(yard[:2]) / 2),
                   "solve_phase_seconds": solve["seconds"],
                   "refined_rel_residual": a["refined_rel_residual"],
                   "refined_cycles": a["refined_cycles"],
@@ -4085,6 +4221,9 @@ def run_cli(torch, kernels, dev, path_counts, work):
                   "history_rel_diff_vs_a": rel(b["residual_history"],
                                                a["residual_history"]),
                   "solve_run_seconds": b["solve_seconds"],
+                  "yardstick_seconds": yard[1:],
+                  "solve_run_over_yardstick": b["solve_seconds"]
+                  / (sum(yard[1:]) / 2),
                   "refined_rel_residual": b["refined_rel_residual"],
                   "refined_cycles": b["refined_cycles"],
                   "host_refine_phase": READINGS["host_refine"][
@@ -4093,7 +4232,6 @@ def run_cli(torch, kernels, dev, path_counts, work):
                   "launches": counts_b,
                   "timer_report": _timer_lines(log_b)}}
     emit(line)
-    ratio = lambda x: x / solve["seconds"]
     ok = (a["converged"] and a["iterations"] == solve["iterations"]
           and line["a"]["history_rel_diff_vs_solve"] <= CLI_HIST_RTOL
           and a["refined_rel_residual"] <= 1e-10
@@ -4108,8 +4246,8 @@ def run_cli(torch, kernels, dev, path_counts, work):
           and plain_calls(counts_b) == 0
           and all("solve.run:" in " ".join(t) for t in
                   (line["a"]["timer_report"], line["b"]["timer_report"]))
-          and all(1 / CLI_SOLVE_RATIO <= ratio(x) <= CLI_SOLVE_RATIO
-                  for x in (a["solve_seconds"], b["solve_seconds"])))
+          and all(1 / CLI_SOLVE_RATIO <= line[k]["solve_run_over_yardstick"]
+                  <= CLI_SOLVE_RATIO for k in ("a", "b")))
     if not ok:
         raise AssertionError(f"the cli phase failed its checks: {line}")
 
@@ -4228,16 +4366,284 @@ def run_cli_multiprocess(torch, kernels, dev, path_counts, work):
                              f"checks: {line}")
 
 
-def run_cli_phases(torch, kernels, dev, path_counts, phase_done):
-    """The three CLI phases, in order, in one temporary directory."""
+def run_cli_phases(torch, kernels, dev, path_counts, phase_done, solve, f):
+    """The three CLI phases, in order, in one temporary directory;
+    ``solve(f)`` is the main path's solve, the cli phase's yardstick."""
     import tempfile
+
+    def solve_now():
+        seconds, res, counts = best_solve_seconds(torch, kernels, solve, f)
+        add_counts(path_counts, counts)
+        if res.iterations != READINGS["solve"]["iterations"]:
+            raise AssertionError(f"the main path's solve took "
+                                 f"{res.iterations} iterations, the solve "
+                                 f"phase's {READINGS['solve']['iterations']}")
+        return seconds
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
-        run_cli(torch, kernels, dev, path_counts, work)
+        run_cli(torch, kernels, dev, path_counts, work, solve_now)
         phase_done("cli")
         run_cli_nek(torch, kernels, dev, path_counts, work)
         phase_done("cli-nek")
         run_cli_multiprocess(torch, kernels, dev, path_counts, work)
         phase_done("cli-multiprocess")
+
+
+# ---------------------------------------------------------------------------
+# The composite's instrumentation (ROADMAP item 15b): the phase report and
+# the region chains on the main path, the chains over 4 shards and on the
+# unstructured mesh, and the region dump through the CLI.
+
+# runtime/phases.phase_report's rows for a structured one-shard composite
+# with inner "amg": 6 marginals, 12 regions, the structured tree exchange's
+# 3 and the assembly's 2. tests/test_torch_phases.py holds their names
+# (the JAX package's) for this path; on the card only a chain that reads
+# None (a kind the parts do not expose) changes the set, by taking rows
+# away, and no other composite gives 23 rows
+PHASES_REPORT_ROWS = 23
+PHASE_KINDS = ["nrm", "op", "dssum", "cnrm", "comp_op", "comp_dssum",
+               "inner_precond", "tree_cascade", "tree_rhs", "inner_smooth",
+               "inner_transfer", "inner_coarse", "comp_assemble",
+               "tree_rings", "tree_coarse", "tree_levels"]
+# the kinds a composite's parts do not expose (a KeyError)
+PHASES_ABSENT = {"structured": {"tree_levels"},
+                 "unstructured": {"tree_rings", "tree_coarse"}}
+# (c)'s mesh: the unstructured phase's
+PHASES_UNSTRUCTURED = {"shape": (16, 16, 16), "order": 7, "seed": 7}
+PHASES_TOTAL_RATIO = (0.67, 1.5)   # total per iteration / the solve's
+PHASES_CHAIN_ITERS = 3
+# the region dump across processes: the dump is tree_rhs(f), so two outer
+# iterations do (the CLI exits 1 where the solve did not converge), and
+# the f64 refinement, which two iterations a cycle cannot take to 1e-10,
+# is left out
+PHASES_MP_ARGV = ([a for a in CLI_MAIN
+                   if a not in ("--refine-tolerance", "1e-10")]
+                  + ["--num-shards", "4", "--max-iterations", "2"])
+
+
+def _chain_values(torch, kernels, dom, pre, absent):
+    """phase_chain over every kind on the domain's manufactured right-hand
+    side: a finite value for each kind the composite exposes, a KeyError
+    for the ``absent`` ones. Returns the values (None where absent), the
+    kinds that broke that rule and the chains' launches."""
+    import math
+    f = dom.manufacture_rhs(dom.initial_function(4, seed=0))
+    kernels.reset_counts()
+    vals, bad = {}, []
+    for kind in PHASE_KINDS:
+        try:
+            vals[kind] = dom.phase_chain(pre, kind, PHASES_CHAIN_ITERS)(f)
+        except KeyError:
+            vals[kind] = None
+        if (vals[kind] is None) != (kind in absent) or (
+                vals[kind] is not None and not math.isfinite(vals[kind])):
+            bad.append(kind)
+    torch.cuda.synchronize()
+    return vals, bad, kernels.counts()
+
+
+def best_solve_seconds(torch, kernels, solve, f, repeats=3):
+    """Best of ``repeats`` CUDA-event timings of ``solve(f)``; returns the
+    seconds, the last run's result and its launches."""
+    best = float("inf")
+    for _ in range(repeats):
+        kernels.reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = solve(f)
+        stop.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(stop) / 1e3)
+    return best, res, kernels.counts()
+
+
+def _dump_bits(path):
+    """A region file's arrays, bf16 values as their uint16 bits."""
+    import numpy as np
+    z = np.load(path)
+    return {k: (z[k].view(np.uint16) if z[k].dtype.kind == "V" else z[k])
+            for k in z.files}
+
+
+def run_phases(torch, kernels, dev, mesh, mk, dom, pre, solve, f,
+               path_counts, card):
+    """(a) runtime/phases.phase_report on the main path (the CLI_MAIN
+    configuration, one shard, in this process), held to the seconds an
+    iteration of the main path's ``solve``, timed again just before and
+    just after it (the mean of the two); (b) every region chain on the
+    same mesh over P = 4 shards (f32 composite, inner "amg", LocalComm);
+    (c) every chain on the unstructured phase's mesh (one shard, f32); (d)
+    CLI_MAIN with
+    --output-composite in a subprocess: group 0 is the main path's
+    tree_rhs(f), bitwise; (e) two CLI processes (gloo) over P = 4 with
+    --output-composite: their four files equal, bitwise, those of the P =
+    4 dump of the same configuration in this process. (d) and (e) run
+    beside (b) and (c); (a) runs alone after them."""
+    import io
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.io.fields import save_composite_fields
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh, scramble_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.phases import phase_report
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.__main__ import take_device
+    cfg = Config.from_args(take_device(CLI_MAIN)[1])
+    meshes = {mesh.poly_degree: mesh}
+
+    def mkc(o):
+        # the phase report's composites rebuild no mesh
+        if o not in meshes:
+            meshes[o] = mk(o)
+        return meshes[o]
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phases_") as work:
+        dump_d = os.path.join(work, "main.npz")
+        dump_e = os.path.join(work, "mp.npz")
+        started = [start_cli_processes(
+            CLI_MAIN + ["--output-composite", dump_d], 1,
+            os.path.join(work, "cli_d"))]
+        try:
+            started.append(start_cli_processes(
+                PHASES_MP_ARGV + ["--output-composite", dump_e],
+                MP_PROCESSES, os.path.join(work, "cli_e")))
+            # (b) every chain over P = 4 shards
+            t0 = time.time()
+            dom4 = Domain(partition_mesh(mesh, 4), dtype=torch.float32,
+                          device=dev)
+            pre4 = composite_dd(dom4, mkc, poly_reduction=6, inner="amg",
+                                fine_mesh=mesh)
+            vals_b, bad_b, counts_b = _chain_values(
+                torch, kernels, dom4, pre4, PHASES_ABSENT["structured"])
+            add_counts(path_counts, counts_b)
+            seconds_b = time.time() - t0
+            # (e)'s reference: the P = 4 dump of the CLI's configuration
+            # (tree_rhs does not read the inner preconditioner)
+            cfg4 = Config.from_args(take_device(PHASES_MP_ARGV)[1])
+            pre4b = composite_dd(dom4, mkc,
+                                 poly_reduction=cfg4.poly_reduction,
+                                 inner="none", ptype=cfg4.ptype_dtype(),
+                                 fine_mesh=mesh)
+            kernels.reset_counts()
+            f4 = dom4.manufacture_rhs(dom4.initial_function(
+                cfg4.manufactured_solution, seed=cfg4.seed))
+            save_composite_fields(os.path.join(work, "one.npz"), dom4, pre4b,
+                                  mkc, f4)
+            add_counts(path_counts, kernels.counts())
+            del dom4, pre4, pre4b, f4
+            # (c) every chain on the unstructured mesh
+            t0 = time.time()
+            us = PHASES_UNSTRUCTURED
+            umk = lambda o: scramble_mesh(kershaw_mesh(
+                us["shape"], o, epsilon=0.3, device=dev), seed=us["seed"],
+                device=dev)
+            umesh = umk(us["order"])
+            udom = Domain(partition_mesh(umesh, 1), dtype=torch.float32,
+                          device=dev)
+            upre = composite_dd(udom, umk, poly_reduction=6, inner="amg",
+                                fine_mesh=umesh)
+            vals_c, bad_c, counts_c = _chain_values(
+                torch, kernels, udom, upre, PHASES_ABSENT["unstructured"])
+            add_counts(path_counts, counts_c)
+            seconds_c = time.time() - t0
+            del umesh, udom, upre
+            torch.cuda.empty_cache()
+            (log_d, rec_d, seconds_d), = finish_cli_processes(
+                kernels, started.pop(0), path_counts)
+            runs_e = finish_cli_processes(kernels, started.pop(0),
+                                          path_counts, rcs=(0, 1))
+        finally:
+            for _, _, procs, _ in started:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+        # (d) group 0 of the CLI's dump is the main path's tree_rhs(f)
+        parts = pre.build(dom.arrays, pre.extra, dom._ops()).parts
+        want = parts["tree_rhs"](f)[0].contiguous().view(torch.int16)
+        got_d = _dump_bits(dump_d)
+        ok_d = (np.array_equal(got_d["group0_values"],
+                               want.cpu().numpy().view(np.uint16))
+                and got_d["group0_values"].shape + (3,)
+                == got_d["group0_coords"].shape
+                and f"composite-region fields written to {dump_d}" in log_d)
+        # (e) the two processes' files against this process's
+        diff_e = {}
+        for p in range(4):
+            a = _dump_bits(os.path.join(work, f"one_s{p}.npz"))
+            b = _dump_bits(os.path.join(work, f"mp_s{p}.npz"))
+            diff_e[p] = sorted(k for k in set(a) | set(b)
+                               if k not in a or k not in b
+                               or not np.array_equal(a[k], b[k]))
+        ok_e = (not any(diff_e.values())
+                and all(r["record"]["iterations"] == 2
+                        for _, r, _ in runs_e))
+        seconds_de = time.time() - t_phase
+    # (a) the phase report, alone on the card, held to the main path's
+    # solve timed just before and just after it: the host's speed drifts
+    # within a run (PERF.md §7), so the yardstick is the mean of the two
+    # readings around the report, not the solve phase's of long before
+    before_s, res, counts_s = best_solve_seconds(torch, kernels, solve, f)
+    add_counts(path_counts, counts_s)
+    kernels.reset_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    rep = phase_report(dom, mkc, cfg=cfg, iterations=10, out=buf)
+    torch.cuda.synchronize()
+    seconds_a = time.time() - t0
+    counts_a = kernels.counts()
+    add_counts(path_counts, counts_a)
+    after_s, res_after, counts_s = best_solve_seconds(torch, kernels, solve,
+                                                      f)
+    add_counts(path_counts, counts_s)
+    print(buf.getvalue(), flush=True)
+    per_it = (before_s + after_s) / 2 / res.iterations
+    ratio = rep["total per iteration"] / per_it
+    ok_a = (len(rep) == PHASES_REPORT_ROWS
+            and res.iterations == res_after.iterations
+            == READINGS["solve"]["iterations"]
+            and all(math.isfinite(v) for v in rep.values())
+            and all(v >= 0.0 for k, v in rep.items()
+                    if k.startswith("region."))
+            and PHASES_TOTAL_RATIO[0] <= ratio <= PHASES_TOTAL_RATIO[1]
+            and sum(counts_a["stiffness_lattice_3d"].values()) > 0
+            and sum(counts_a["lattice_face_sum_3d"].values()) > 0
+            and plain_calls(counts_a) == 0)
+    emit({"phase": "phases-report", "card": card,
+          "config": " ".join(CLI_MAIN), "seconds": seconds_a,
+          "ms": {k: 1e3 * v for k, v in rep.items()},
+          "solve_ms_per_iteration": {
+              "before": 1e3 * before_s / res.iterations,
+              "after": 1e3 * after_s / res.iterations, "mean": 1e3 * per_it},
+          "solve_phase_ms_per_iteration": 1e3 * READINGS["solve"]["seconds"]
+          / READINGS["solve"]["iterations"],
+          "total_over_solve": ratio, "launches": counts_a})
+    line = {"phase": "phases", "card": card,
+            "a": {"seconds": seconds_a, "total_over_solve": ratio,
+                  "ok": ok_a},
+            "b": {"shards": 4, "seconds": seconds_b, "chains": vals_b,
+                  "bad": bad_b, "launches": counts_b},
+            "c": {"mesh": "scrambled kershaw eps=0.3", **PHASES_UNSTRUCTURED,
+                  "seconds": seconds_c, "chains": vals_c, "bad": bad_c,
+                  "launches": counts_c},
+            "d": {"seconds": seconds_d, "group0_bitwise": ok_d,
+                  "launches": rec_d["counts"]},
+            "e": {"argv": " ".join(PHASES_MP_ARGV),
+                  "processes": MP_PROCESSES,
+                  "seconds": runs_e[0][2], "differing_keys": diff_e,
+                  "iterations": [r["record"]["iterations"]
+                                 for _, r, _ in runs_e]},
+            "seconds_b_to_e": seconds_de}
+    emit(line)
+    if not (ok_a and not bad_b and not bad_c and ok_d and ok_e
+            and plain_calls(counts_b) == 0 and plain_calls(counts_c) == 0):
+        raise AssertionError(f"the phases phase failed its checks: {line}")
 
 
 def run_host_refine(torch, kernels, dom, mesh, solve, u_star, device_ref):
@@ -4375,17 +4781,7 @@ def main():
     res = solve(f)
     torch.cuda.synchronize()
     first_s = time.time() - t0
-    best = float("inf")
-    for _ in range(3):
-        kernels.reset_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = solve(f)
-        stop.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(stop) / 1e3)
-    solve_counts = kernels.counts()
+    best, res, solve_counts = best_solve_seconds(torch, kernels, solve, f)
     add_counts(path_counts, solve_counts)
     hist = res.residual_history.cpu()
     hist = hist[torch.isfinite(hist)]
@@ -4453,24 +4849,32 @@ def main():
     add_counts(path_counts, femamg_counts)
     phase_done("femamg")
 
-    add_counts(path_counts, run_spmd_ops(torch, kernels, dev, mesh))
-    phase_done("spmd-ops")
-    add_counts(path_counts, run_spmd_gate1(torch, kernels, dev))
-    phase_done("spmd-gate1")
-    add_counts(path_counts, run_spmd(torch, kernels, dev, mesh, mk, pmg_line))
-    phase_done("spmd")
-    run_composite_phases(torch, kernels, dev, mesh, mk, path_counts,
-                         phase_done)
-    run_unstructured_phases(torch, kernels, dev, path_counts, phase_done)
-    add_counts(path_counts, run_unstructured_femamg(torch, kernels, dev,
-                                                    phase_done))
-    run_2d_phases(torch, kernels, dev, path_counts, phase_done)
-    run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done)
+    # the 2-D phases run in a child process beside the next ones
+    suite_2d = start_2d_suite()
+    try:
+        add_counts(path_counts, run_spmd_ops(torch, kernels, dev, mesh))
+        phase_done("spmd-ops")
+        add_counts(path_counts, run_spmd_gate1(torch, kernels, dev))
+        phase_done("spmd-gate1")
+        add_counts(path_counts, run_spmd(torch, kernels, dev, mesh, mk,
+                                         pmg_line))
+        phase_done("spmd")
+        run_composite_phases(torch, kernels, dev, mesh, mk, path_counts,
+                             phase_done)
+        run_unstructured_phases(torch, kernels, dev, path_counts, phase_done)
+        add_counts(path_counts, run_unstructured_femamg(torch, kernels, dev,
+                                                        phase_done))
+        counts_2d, beside = finish_2d_suite(suite_2d)
+    finally:
+        stop_2d_suite(suite_2d)
+    add_counts(path_counts, counts_2d)
+    phase_done("2-D suite, waited for")
     run_multiprocess(torch, kernels, dev, path_counts)
     phase_done("multiprocess")
-    run_multiprocess_2d(torch, kernels, dev, path_counts)
-    phase_done("multiprocess-2d")
-    run_cli_phases(torch, kernels, dev, path_counts, phase_done)
+    run_cli_phases(torch, kernels, dev, path_counts, phase_done, solve, f)
+    run_phases(torch, kernels, dev, mesh, mk, dom, pre, solve, f, path_counts,
+               card)
+    phase_done("phases")
 
     entries = []
     for (name, dt), t in sorted(timed.items()):
@@ -4540,7 +4944,8 @@ def main():
           "their library_ms is null; the SpMV's is torch.mv on a sparse_csr "
           "tensor (cuSPARSE), timed and used nowhere else", flush=True)
     emit({"phase_seconds": phase_seconds,
-          "total_seconds": sum(phase_seconds.values())})
+          "total_seconds": sum(phase_seconds.values()),
+          "beside": beside})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

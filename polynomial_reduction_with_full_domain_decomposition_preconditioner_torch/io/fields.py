@@ -1,22 +1,115 @@
 """Field output: npz and legacy-VTK export.
 
 Port of the JAX package's ``io/fields.py`` (``save_fields``,
-``save_vtk``): the reference's Silo output (per-element node meshes with
-the u*, f and u variables gathered to rank 0) as dependency-free formats,
-compressed npz (lossless, reads back through numpy) and legacy ASCII VTK
-unstructured grids (ParaView / VisIt). Host numpy on the values of
-``Domain.from_device_field``. The composite-region dump
-(``save_composite_fields``) is ROADMAP item 15b.
+``save_vtk``, ``save_composite_fields``): the reference's Silo output
+(per-element node meshes with the u*, f and u variables gathered to rank
+0, and the composite's subdomain / superdomain fields) as
+dependency-free formats, compressed npz (lossless, reads back through
+numpy) and legacy ASCII VTK unstructured grids (ParaView / VisIt). Host
+numpy on the values of ``Domain.from_device_field``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["save_fields", "save_vtk"]
+__all__ = ["save_fields", "save_vtk", "save_composite_fields"]
 
 _TITLE = ("polynomial_reduction_with_full_domain_decomposition_"
           "preconditioner_torch fields")
+
+
+def _host(t):
+    """A device tensor as numpy, bf16 as the JAX package's npz holds it:
+    the same bits in 2-byte void records (numpy has no bfloat16, and
+    np.savez of an ml_dtypes bfloat16 array writes "|V2")."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def save_composite_fields(path: str, dom, pre, mesh_builder, r):
+    """Dump the composite's region fields for visualization, the
+    reference's subdomain / superdomain output: the composite right-hand
+    side tree_rhs(r) that the inner solve sees, one array a group (or
+    class), with nodal coordinates regenerated by ``mesh_builder`` at each
+    group's order (left out for a z-merged far group).
+
+    One shard writes one npz; P > 1 shards write one npz per owned shard
+    with the suffix ``_s{p}``, in one process or across processes (each
+    process its own shards). Each shard's composite covers the whole
+    domain. Keys: kind, orders, group{i}_values / _order / _coords, and
+    sup_values for the unstructured superdomain vector. Returns the dict
+    written (the last shard's)."""
+    info = pre.region_info
+    if info is None:
+        raise ValueError("preconditioner carries no region_info (cached "
+                         "unstructured setups skip it — rebuild without "
+                         "the setup cache to dump regions)")
+    fn = pre.build(dom.arrays, pre.extra, dom._ops())
+    host = [_host(p) for p in fn.parts["tree_rhs"](r)]
+    if dom.spmd:
+        shard_sets = [(p, [h[k] for h in host])
+                      for k, p in enumerate(dom.owned)]
+    elif info["kind"] == "unstructured":
+        # one shard's class stacks still carry the shard axis
+        shard_sets = [(None, [h[0] for h in host])]
+    else:
+        shard_sets = [(None, host)]
+
+    mesh_cache = {}
+
+    def mesh_at(o):
+        if o not in mesh_cache:
+            mesh_cache[o] = mesh_builder(o)
+        return mesh_cache[o]
+
+    base = path[:-4] if path.endswith(".npz") else path
+    for p, parts in shard_sets:
+        out = {"kind": info["kind"], "orders": np.asarray(info["orders"])}
+        key = sorted(info["phys" if info["kind"] == "structured"
+                     else "elems"])[0] if p is None else p
+        if info["kind"] == "structured":
+            from ..mesh.layout import elements_to_lattice
+            plane_shape = tuple(info["plane_shape"])
+            plane = int(np.prod(plane_shape))
+            phys = info["phys"][key]
+            for gi, o in enumerate(info["orders"]):
+                vals = parts[gi]
+                out[f"group{gi}_values"] = vals
+                out[f"group{gi}_order"] = o
+                if info["zcoarse"][gi] != 1:
+                    continue    # z-merged far mesh: geometry not dumped
+                mesh_o = mesh_at(o)
+                n_o = o + 1
+                rows = []
+                for q in phys[gi]:
+                    if q < 0:
+                        rows.append(np.zeros((n_o,) + vals.shape[1:]
+                                             + (dom.dim,)))
+                        continue
+                    rows.append(elements_to_lattice(
+                        mesh_o.coords[q * plane:(q + 1) * plane],
+                        (1,) + plane_shape, n_o, dom.dim))
+                out[f"group{gi}_coords"] = np.concatenate(rows, axis=0)
+        else:
+            C = len(info["orders"])
+            elems = info["elems"][key]
+            for c, o in enumerate(info["orders"]):
+                out[f"group{c}_values"] = parts[c]
+                out[f"group{c}_order"] = o
+                e = elems[c]
+                safe = np.where(e >= 0, e, 0)
+                out[f"group{c}_coords"] = (mesh_at(o).coords[safe]
+                                           * (e >= 0)[:, None, None])
+            if len(parts) > C:
+                # the superdomain vector, flat as the JAX package's
+                out["sup_values"] = parts[C].reshape(-1)
+        fname = f"{base}.npz" if p is None else f"{base}_s{p}.npz"
+        np.savez_compressed(fname, **out)
+    return out
 
 
 def save_fields(path: str, dom, **fields):

@@ -12,6 +12,9 @@ A sharded field is one tensor whose leading axis holds the
   allreduce(*xs)       -> values this process has already summed over its
                           own shards, summed over the processes: the
                           psum of a dot's partials
+  allreduce_max(x)     -> a value this process has already reduced over
+                          its own shards by max, the max over the
+                          processes (``jax.lax.pmax``)
   slab_exchange_add(U, top_plane)
                        -> each shard's bottom plane plus the top plane of
                           the shard below, and its top plane plus the
@@ -126,6 +129,11 @@ class LocalComm:
         over the processes, as a tuple. One process holds every shard, so
         they are the totals."""
         return xs
+
+    def allreduce_max(self, x):
+        """``x``, already the max over this process's shards, the max over
+        the processes: one process holds every shard, so it is the max."""
+        return x
 
     def slab_exchange_add(self, U, top_plane=None):
         """Add the neighbouring shards' boundary planes of the slab
@@ -293,6 +301,13 @@ class ProcessComm:
         total = self._all_reduce(torch.stack([torch.as_tensor(x) for x in
                                               xs]))
         return tuple(total.unbind(0))
+
+    def allreduce_max(self, x):
+        """``x``, already the max over this process's shards, the max over
+        the processes in one all_reduce."""
+        buf = self._out(x) if self._staged(x) else x.contiguous().clone()
+        self._dist.all_reduce(buf, op=self._dist.ReduceOp.MAX)
+        return self._back(buf, x)
 
     def sum_host(self, a):
         """A host numpy array summed over the processes (one all_reduce;

@@ -87,9 +87,9 @@ class Config:
     seed: int = 0
     output: str | None = None          # npz/vtk field dump path
     output_composite: str | None = None  # composite-region field dump
-    #   (ROADMAP item 15b: refused by the driver)
-    phase_report: bool = False         # the differential phase table
-    #   (ROADMAP item 15b: refused by the driver)
+    #   (io/fields.save_composite_fields; composite preconditioner only)
+    phase_report: bool = False         # the phase tables: differential
+    #   solve marginals and chained regions (runtime/phases.py)
     inner_history: bool = False        # print one preconditioner
     #   application's inner FGMRES residuals
     checkpoint: str | None = None      # directory for setup checkpoints

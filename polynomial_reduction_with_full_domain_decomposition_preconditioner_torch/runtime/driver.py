@@ -29,9 +29,6 @@ from .timer import Timer
 
 __all__ = ["run_simulation"]
 
-_LATER = ("is ROADMAP item 15b (runtime/phases.py and the composites' "
-          "region_info), not ported yet")
-
 
 def _setup_tag(cfg: Config) -> str:
     tag = (f"{cfg.mesh}_{'x'.join(map(str, cfg.shape))}"
@@ -136,24 +133,15 @@ def _build_preconditioner(cfg: Config, dom, mesh_builder, fine_mesh=None):
     return None
 
 
-def _refuse_later(cfg: Config):
-    """The options of ROADMAP item 15b raise before any work, under the
-    JAX package's conditions for running them."""
-    if cfg.output_composite:
-        if cfg.preconditioner != "composite":
-            raise ValueError("--output-composite needs the composite "
-                             "preconditioner")
-        raise NotImplementedError(f"--output-composite {_LATER}")
-    if cfg.phase_report and cfg.preconditioner == "composite":
-        raise NotImplementedError(f"--phase-report {_LATER}")
-
-
 def run_simulation(cfg: Config, out=None, device=None) -> dict:
     """Run one configured solve on ``device`` (None: the card, raising
     without one) and return a structured result record; the text goes to
     ``out`` (None: standard output)."""
     out = sys.stdout if out is None else out
-    _refuse_later(cfg)
+    # checked before any work (the JAX driver checks it after the solve)
+    if cfg.output_composite and cfg.preconditioner != "composite":
+        raise ValueError("--output-composite needs the composite "
+                         "preconditioner")
     device = resolve_device(device)
 
     def sync():
@@ -291,6 +279,18 @@ def run_simulation(cfg: Config, out=None, device=None) -> dict:
         from ..io.fields import save_fields
         save_fields(cfg.output, dom, u=res.u, u_star=u_star, f=f)
         print(f"fields written to {cfg.output}", file=out)
+
+    if cfg.output_composite:
+        from ..io.fields import save_composite_fields
+        save_composite_fields(cfg.output_composite, dom, pre,
+                              mesh_builder, f)
+        print(f"composite-region fields written to {cfg.output_composite}",
+              file=out)
+
+    if cfg.phase_report and cfg.preconditioner == "composite":
+        from .phases import phase_report
+        phase_report(dom, mesh_builder, cfg=cfg,
+                     iterations=min(10, max(iters, 2)), out=out)
 
     return {
         "config": cfg.to_json(),

@@ -21,6 +21,9 @@ run is a dict:
   setup_cache a directory: the composite is built twice, the second time
               from the per-process setup cache the first build wrote
   exchange_reps  time this many slab exchanges alone after the solve
+  phase_chains   {"kinds": [...], "iters": n}: after the solve, the
+              value of ``Domain.phase_chain(precond, kind, n)(f)`` for
+              each kind (the max over every shard of every process)
 
 Each process initializes the group, takes its shards
 (``runtime/distributed.owned_shards``), partitions the mesh for them
@@ -146,9 +149,14 @@ def run_one(run: dict, device, local: bool = False) -> dict:
            "err_local": err, "setup_seconds": setup_s,
            "solve_seconds": solve_s, "cache_hit": cache_hit,
            "launches": launches, "comm": stats}
+    chains = run.get("phase_chains")
+    if chains:
+        rec["phase_chains"] = {
+            k: dom.phase_chain(pre, k, chains["iters"])(f)
+            for k in chains["kinds"]}
     if not local:
-        # the launch signatures of the setup and the solve, so that the
-        # caller can hold each kernel to its twin at them
+        # the launch signatures of the setup, the solve and the chains, so
+        # that the caller can hold each kernel to its twin at them
         rec["signatures"] = kernels.take_signatures()
     reps = run.get("exchange_reps", 0)
     if reps and dom.lattice_shape is not None and not local:

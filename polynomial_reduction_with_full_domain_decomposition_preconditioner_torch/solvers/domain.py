@@ -451,6 +451,102 @@ class Domain:
             raise ValueError("preconditioner has no inner-solve probe")
         return fn.probe
 
+    def phase_chain(self, precond, kind: str, iters: int):
+        """(f) -> float: ``iters`` chained applications of one solver
+        region, the device-measured phase taxonomy of runtime/phases.py
+        (the reference's timed regions). Each application depends on the
+        one before, and the chain reads the host once, at its end, so
+        that difference-timing two chain lengths cancels the fixed costs.
+
+        Outer kinds: "nrm" (a dot and a scale, the measurement baseline),
+        "op" (operator then dssum) and "dssum". Composite kinds need a
+        ``precond`` whose built function exposes ``.parts``: the tree
+        kinds ("tree_cascade", "tree_rhs", and "tree_rings" /
+        "tree_coarse" of the structured composite or "tree_levels" of the
+        unstructured one) chain on the outer residual, with a one-element
+        dependency on a copy of ``f``; the composite-space kinds ("cnrm",
+        "comp_op", "comp_dssum", "comp_assemble", "inner_precond" and the
+        inner="amg" V-cycle legs "inner_smooth", "inner_transfer",
+        "inner_coarse") chain from ``parts["tree_rhs"](f)``. The scalar
+        is the max over the shards (the stack, then the processes), as
+        the JAX package's pmax. The preconditioner is built once, here.
+        """
+        ops = self._ops()
+        operator, dssum, dot, _ = ops
+        parts = None
+        if precond is not None:
+            fn = precond.build(self.arrays, precond.extra, ops)
+            parts = getattr(fn, "parts", None)
+        stacked = self.spmd
+        Po = self.num_owned
+
+        def first(t):
+            # each shard's first element: (P,) over a stack, else 0-d
+            return t.reshape(Po, -1)[:, 0] if stacked else t.reshape(-1)[0]
+
+        def result(s):
+            s = s.to(torch.float32)
+            if s.dim():
+                s = s.amax()
+            return float(self.comm.allreduce_max(s))
+
+        def nrm(x):
+            return x * torch.rsqrt(dot(x, x) + 1e-30).to(x.dtype)
+
+        if kind in ("nrm", "op", "dssum"):
+            step = {"nrm": nrm,
+                    "op": lambda x: nrm(dssum(operator(x))),
+                    "dssum": lambda x: nrm(dssum(x))}[kind]
+
+            def chain(f):
+                x = f
+                for _ in range(iters):
+                    x = step(x)
+                return result(dot(x, x))
+            return chain
+
+        if parts is None:
+            raise ValueError(f"phase kind {kind!r} needs a composite "
+                             "preconditioner exposing .parts")
+
+        if kind in ("tree_cascade", "tree_rhs", "tree_rings", "tree_coarse",
+                    "tree_levels"):
+            part = parts[kind]
+
+            def chain(f):
+                x = f.clone()
+                acc = first(f) * 0.0
+                for _ in range(iters):
+                    # one-element loop dependency, on the copy
+                    first(x).add_((1e-30 * acc).to(x.dtype))
+                    acc = first(part(x)[0]).to(f.dtype, copy=True)
+                return result(acc)
+            return chain
+
+        # composite-space chains: rank-local dots, one scale a shard
+        cdot = krylov.shard_dot if stacked else krylov.tree_dot
+
+        def cnrm(x):
+            sc = torch.rsqrt(cdot(x, x).to(torch.float32) + 1e-30)
+            return [u * krylov._bc(sc.to(u.dtype), u) for u in x]
+
+        if kind == "cnrm":
+            step = cnrm
+        else:
+            part_name = {"comp_op": "comp_operator"}.get(kind, kind)
+            if part_name not in parts:
+                raise ValueError(f"phase kind {kind!r}: preconditioner "
+                                 f"exposes {sorted(parts)}")
+            part = parts[part_name]
+            step = lambda x: cnrm(part(x))
+
+        def chain(f):
+            x = parts["tree_rhs"](f)
+            for _ in range(iters):
+                x = step(x)
+            return result(cdot(x, x))
+        return chain
+
     def residual(self, u, f):
         """(r, ||r||): non-assembled residual and its assembled norm
         sqrt(<r, QQt r>)."""

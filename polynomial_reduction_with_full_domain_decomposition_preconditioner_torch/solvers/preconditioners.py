@@ -10,6 +10,8 @@ production preconditioner is ``solvers/subdomain.composite_dd``.
 A Preconditioner carries
   build(arrays, extra, ops) -> (r -> z),
   extra: the preconditioner's own tensors,
+  region_info: the composite's regions (group or class orders and where
+    their elements come from) for io/fields.save_composite_fields,
 and the returned z must be continuous and masked.
 """
 
@@ -37,6 +39,11 @@ __all__ = ["Preconditioner", "jacobi", "pmultigrid"]
 class Preconditioner:
     build: Callable[[Any, Any, tuple], Callable]
     extra: Any = None
+    # host-side description of the composite's regions: group / class
+    # orders and element provenance, for the region field dump
+    # (io/fields.save_composite_fields); None where the preconditioner
+    # is not a composite or was set up from a cached payload
+    region_info: Any = None
 
 
 def _inv_diag(geom, D, dim, dssum):

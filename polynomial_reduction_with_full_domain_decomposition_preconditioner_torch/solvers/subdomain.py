@@ -261,6 +261,7 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
 
     amg = None
     setup_seconds = {}
+    vcycle_parts = {}
     if inner == "fem-amg":
         # the assembled composite FEM hierarchy (host f64), packed in the
         # ptype: level matrices, transfers and Q / Q^T as CSR on the device
@@ -372,6 +373,10 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
                 x = cheby_smooth(A_mf, comp_inv_diag, lmax0, fc, x,
                                  cheby_order)
             return x
+
+        vcycle_parts = _vcycle_parts(A_mf, comp_inv_diag, lmax0, cheby_order,
+                                     restrict_to_vertex, vertex_solve,
+                                     prolong_from_vertex)
     elif inner == "fem-amg":
         # G = 1: join / split are a flatten and a reshape of the group's
         # lattice, and the composite mask is the group's mask
@@ -416,15 +421,51 @@ def composite_dd(domain, mesh_builder, poly_reduction: int,
         def precond(r):
             return _solve_inner(r)[0]
 
-        # inner-solve observability: one application's inner history, and
-        # the composite ops (as at P > 1)
+        # inner-solve observability: one application's inner history
         precond.probe = _solve_inner
-        precond.tree_rhs = lambda r: [r.to(dtype)]
-        precond.comp_dssum = comp_dssum
-        precond.comp_operator = comp_operator
+
+        # per-region closures for the phase taxonomy (runtime/phases.py,
+        # Domain.phase_chain). One group: the composite right-hand side is
+        # the residual in the ptype, and so are the tree legs' values (the
+        # JAX package's cascade also restricts to the coarser levels, but
+        # its chains and its dump read level 0 only); the assemble half is
+        # the face sum without the mask
+        def tree_rhs(r):
+            return [r.to(dtype)]
+
+        precond.parts = {
+            "tree_rhs": tree_rhs, "tree_cascade": tree_rhs,
+            "tree_rings": tree_rhs, "tree_coarse": tree_rhs,
+            "comp_operator": comp_operator,
+            "comp_dssum": lambda x: comp_dssum(x, apply_mask=True),
+            "comp_assemble": lambda x: comp_dssum(x, apply_mask=False),
+            "inner_precond": inner_precond,
+            **vcycle_parts,
+        }
         return precond
 
-    return Preconditioner(build=build, extra=extra)
+    # the one group's provenance, as the JAX package's G = 1 values
+    g = groups[0]
+    return Preconditioner(build=build, extra=extra, region_info={
+        "kind": "structured", "orders": [g.order], "zcoarse": [g.zcoarse],
+        "layers": [g.layers], "plane_shape": plane_shape,
+        "phys": {0: [list(range(m_last))]}})
+
+
+def _vcycle_parts(A_mf, comp_invd, lmax0, cheby_order, restrict_to_vertex,
+                  vertex_solve, prolong_from_vertex):
+    """The V-cycle's legs of inner="amg" as phase-taxonomy closures: one
+    Chebyshev pass from zero, the transfers (prolong after restrict), and
+    the coarse correction (prolong after the vertex solve after
+    restrict)."""
+    return {
+        "inner_smooth": lambda x: cheby_smooth(A_mf, comp_invd, lmax0, x,
+                                               None, cheby_order),
+        "inner_transfer": lambda x: prolong_from_vertex(
+            restrict_to_vertex(x)),
+        "inner_coarse": lambda x: prolong_from_vertex(
+            vertex_solve(restrict_to_vertex(x))),
+    }
 
 
 def _on_stack(fn):
@@ -893,6 +934,16 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
         return ([r_lvl[0]] + rings_above(r_lvl) + far_parts(r_lvl)
                 + rings_below(r_lvl))
 
+    # the tree exchange's two legs, each on top of the shared cascade (the
+    # phase taxonomy's ring and far rows)
+    def tree_rings(r):
+        r_lvl = tree_cascade(r)
+        return [r_lvl[0]] + rings_above(r_lvl) + rings_below(r_lvl)
+
+    def tree_coarse(r):
+        r_lvl = tree_cascade(r)
+        return [r_lvl[0]] + far_parts(r_lvl)
+
     def comp_inv_diag():
         diag = [sem.stiffness_diagonal_lattice(gd["geom"], gd["D"], dim)
                 for gd in gdata]
@@ -904,6 +955,7 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
 
     amg = None
     setup_seconds = {}
+    vcycle_parts = {}
     if inner == "amg":
         chain_info = _chain_info(chain_info, chain_cache,
                                  lambda: mesh_by_order[1], plane_shape,
@@ -1014,6 +1066,10 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
                 x = [a + b for a, b in zip(x, prolong_from_vertex(v))]
                 x = cheby_smooth(A_mf, comp_invd, lmax0, fc, x, cheby_order)
             return x
+
+        vcycle_parts = _vcycle_parts(A_mf, comp_invd, lmax0, cheby_order,
+                                     restrict_to_vertex, vertex_solve,
+                                     prolong_from_vertex)
     elif inner == "fem-amg":
         # one assembled hierarchy per shard (ragged: pad slots are zero Q
         # rows, DOF counts padded to the largest), packed block-diagonal.
@@ -1093,9 +1149,25 @@ def _composite_shards(domain, mesh_builder, poly_reduction, V, sup_overlap,
             return z, torch.amax(hist, dim=-1)
 
         precond.probe = probe
-        precond.tree_rhs = lambda r: tree_rhs(r.to(dtype))
-        precond.comp_dssum = comp_dssum
-        precond.comp_operator = comp_operator
+        # per-region closures for the phase taxonomy (runtime/phases.py,
+        # Domain.phase_chain)
+        precond.parts = {
+            "tree_rhs": lambda r: tree_rhs(r.to(dtype)),
+            "tree_cascade": lambda r: tree_cascade(r.to(dtype)),
+            "tree_rings": lambda r: tree_rings(r.to(dtype)),
+            "tree_coarse": lambda r: tree_coarse(r.to(dtype)),
+            "comp_operator": comp_operator,
+            "comp_dssum": lambda x: comp_dssum(x, apply_mask=True),
+            "comp_assemble": comp_assemble,
+            "inner_precond": inner_precond,
+            **vcycle_parts,
+        }
         return precond
 
-    return Preconditioner(build=build, extra=extra)
+    # the groups' provenance for the region field dump: each owned
+    # shard's physical fine layer of every slot
+    return Preconditioner(build=build, extra=extra, region_info={
+        "kind": "structured", "orders": [g.order for g in groups],
+        "zcoarse": [g.zcoarse for g in groups],
+        "layers": [g.layers for g in groups], "plane_shape": plane_shape,
+        "phys": {p: [list(ph) for ph in phys_lists[p]] for p in owned}})

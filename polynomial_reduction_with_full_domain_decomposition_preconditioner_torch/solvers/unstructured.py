@@ -66,6 +66,7 @@ from ..ops.gather_scatter import ordered_scatter_add, ordered_sum_plan
 from ..runtime.checkpoint import load_setup_payload, save_setup_payload
 from ..utils.gll import diff_matrix, gll_points_weights, interp_matrix
 from .preconditioners import Preconditioner
+from .subdomain import _rank_local_solve, _vcycle_parts
 from . import krylov
 
 __all__ = ["composite_dd_unstructured"]
@@ -497,7 +498,9 @@ def _host_setup(sd, mesh_builder, orders, V, superdomain_overlap,
                 "far": int(f.size), "compressed": bool(compress)}
                for (o, rings), f in zip(region_sets, far_sets)]
     return {"classes": classes, "slaves": slaves, "sup": sup, "nv": nv,
-            "regions": regions, "fem": fem}, mesh1
+            "regions": regions, "fem": fem,
+            "elems": {p: [class_elems[c][p] for c in range(C)]
+                      for p in owned}}, mesh1
 
 
 def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
@@ -540,8 +543,6 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
     if inner_solver not in ("fgmres", "fcg"):
         raise ValueError(f"inner_solver={inner_solver!r} "
                          "(use 'fgmres' or 'fcg')")
-    from .subdomain import _rank_local_solve
-
     sd = domain.sharded
     dim = domain.dim
     N = domain.poly_degree
@@ -671,12 +672,22 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             out.append(spmv(sup_x["A"], parts[C]))
         return out
 
+    def comp_assemble(parts):
+        """The gather half of the 3-D composite dssum: each class's exact
+        face-block sums, without the constraint algebra or the mask (an
+        empty class and the superdomain vector as they are)."""
+        ys = [parts[c] if cls_x[c]["shape"][1] == 0
+              else fd.face_assemble(parts[c], cls_x[c]["fb"])
+              for c in range(C)]
+        return ys + parts[C:]
+
     def comp_dssum(parts, apply_mask=True):
         # exact assembly per class (3-D: face blocks, then the slave /
         # superdomain constraint algebra on the compact touched vectors;
         # 2-D: an ordered scatter into the class's nodes, the algebra on
         # those node vectors)
         ys, wTs = [], []
+        ys_fb = comp_assemble(parts) if dim == 3 else None
         for c in range(C):
             cx = cls_x[c]
             if dim == 2:
@@ -684,13 +695,10 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
                     parts[c].new_zeros(Po * (cx["NT"] + 1)),
                     parts[c].reshape(-1), cx["scatter"]))
                 continue
-            if cx["shape"][1] == 0:          # an empty class
-                ys.append(parts[c])
-                wTs.append(parts[c].new_zeros(Po * (cx["NT"] + 1)))
-                continue
-            y = fd.face_assemble(parts[c], cx["fb"])
+            y = ys_fb[c]
             ys.append(y)
-            wTs.append(y.reshape(-1)[cx["trep"]])
+            wTs.append(y.new_zeros(Po * (cx["NT"] + 1))
+                       if cx["shape"][1] == 0 else y.reshape(-1)[cx["trep"]])
         for c in range(C - 1):               # collapse fine -> coarse
             s = slv_x[c]
             contrib = s["wts"] * wTs[c][s["ids"]].view(Po, -1, 1)
@@ -735,16 +743,17 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             r_lvl.append(interp.restrict(r_lvl[-1], Jl, dim))
         return r_lvl
 
-    def tree_rhs(r):
+    def tree_rhs(r, with_sup=True):
         # one all-gather a level; rings and far field are then per-shard
-        # element takes of the gathered levels
+        # element takes of the gathered levels. Without the superdomain
+        # projection: the phase taxonomy's level leg (tree_levels)
         blocks = [comm.all_gather(rl) for rl in tree_cascade(r)]
         parts = []
         for c in range(C):
             cx = cls_x[c]
             sel = blocks[c].index_select(0, cx["src"]).view(cx["shape"])
             parts.append(sel * cx["valid"])
-        if sup_x is not None:
+        if sup_x is not None and with_sup:
             # the far elements' restricted residual, vertex-assembled and
             # projected with P^T
             sel = (blocks[C - 1].index_select(0, sup_x["src"])
@@ -770,6 +779,7 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
         comp_mask.append(sup_x["mask"])
 
     amg = None
+    vcycle_parts = {}
     if inner == "amg":
         # smoothed-aggregation hierarchy on the global Q1 vertex matrix,
         # cycled per shard (a (P, nv) stack)
@@ -846,6 +856,11 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
                 x = [a + b for a, b in zip(x, prolong_from_vertex(v))]
                 x = cheby_smooth(A_mf, comp_invd, lmax0, fc, x, cheby_order)
             return x
+
+        vcycle_parts = _vcycle_parts(
+            A_mf, comp_invd, lmax0, cheby_order, restrict_to_vertex,
+            lambda w: vcycle_apply(chain, w, cheby_order=cheby_order),
+            prolong_from_vertex)
         lap("lmax")
     elif inner == "fem-amg":
         # the shards' FEM hierarchies as block-diagonal operators in ptype
@@ -881,8 +896,11 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             return comp_dssum(rr, apply_mask=True)
 
     if setup_cache is not None and fresh:
+        # the region provenance is not part of the payload (nor of the
+        # JAX package's): a loaded setup has no region_info
         saved = dict(host, format=_SETUP_FORMAT, key=key, agg_info=None,
                      agg_vmask=None, lmax0=None)
+        del saved["elems"]
         if amg is not None:
             saved.update(agg_info=agg_info, agg_vmask=vmask,
                          lmax0=lmax0.reshape(-1).double().cpu().numpy())
@@ -924,9 +942,27 @@ def composite_dd_unstructured(domain, mesh_builder, poly_reduction: int,
             return z, torch.amax(hist, dim=-1)
 
         precond.probe = probe
-        precond.tree_rhs = lambda r: tree_rhs(r.to(dtype))
-        precond.comp_dssum = comp_dssum
-        precond.comp_operator = comp_operator
+        # per-region closures for the phase taxonomy (runtime/phases.py,
+        # Domain.phase_chain); the assemble half where the dssum has one
+        # (the face blocks of 3-D)
+        precond.parts = {
+            "tree_rhs": lambda r: tree_rhs(r.to(dtype)),
+            "tree_cascade": lambda r: tree_cascade(r.to(dtype)),
+            "tree_levels": lambda r: tree_rhs(r.to(dtype), with_sup=False),
+            "comp_operator": comp_operator,
+            "comp_dssum": lambda x: comp_dssum(x, apply_mask=True),
+            "inner_precond": inner_precond,
+            **vcycle_parts,
+        }
+        if dim == 3:
+            precond.parts["comp_assemble"] = comp_assemble
         return precond
 
-    return Preconditioner(build=build, extra=extra)
+    # the classes' element provenance for the region field dump: each
+    # owned shard's padded element ids a class (-1 at pads); a payload
+    # holds none
+    return Preconditioner(
+        build=build, extra=extra,
+        region_info=None if not fresh else {
+            "kind": "unstructured", "orders": list(orders),
+            "elems": host["elems"]})

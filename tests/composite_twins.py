@@ -94,7 +94,7 @@ def check_tree_rhs(jd, td, jp, tp, f, exact_orders, eps=EPS16):
     shifts of the residual, or restricted by an exact cascade) bitwise,
     the others within eps of max (16 eps by default; ROADMAP section
     3)."""
-    got = tp.build(td.arrays, tp.extra, td._ops()).tree_rhs(
+    got = tp.build(td.arrays, tp.extra, td._ops()).parts["tree_rhs"](
         torch.as_tensor(np.array(f)))
     want = jax_tree_rhs(jd, jp, f)
     assert len(got) == len(want) == len(tp.extra["specs"])

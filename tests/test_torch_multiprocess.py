@@ -44,6 +44,9 @@ MODES = {   # name -> (inner, scrambled, max error, mesh)
 }
 
 
+CHAIN_KINDS = ("op", "tree_rhs", "comp_op")
+
+
 def _run(name, cache_dir=None):
     inner, scrambled, _, mesh = MODES[name]
     run = {"name": name,
@@ -56,6 +59,9 @@ def _run(name, cache_dir=None):
            "u_star": {"function_id": 4, "seed": 1}}
     if cache_dir is not None:
         run["setup_cache"] = str(cache_dir)
+    if name == "structured":
+        # region chains whose scalar is the max over the processes
+        run["phase_chains"] = {"kinds": list(CHAIN_KINDS), "iters": 3}
     return run
 
 
@@ -111,6 +117,15 @@ def test_two_process_run_matches_local_comm(solves, mode):
         assert [p["cache_hit"] for p in procs] == [True, True]
         assert cached[mode] == [f"setup_{mode}_pp0of2_o0-1.npz",
                                 f"setup_{mode}_pp1of2_o2-3.npz"]
+    if mode == "structured":
+        # Domain.phase_chain: each process's scalar is the max over all
+        # four shards, the one process's value
+        for proc in procs:
+            assert set(proc["phase_chains"]) == set(CHAIN_KINDS)
+            for kind in CHAIN_KINDS:
+                np.testing.assert_allclose(proc["phase_chains"][kind],
+                                           ref["phase_chains"][kind],
+                                           rtol=1e-12, err_msg=kind)
     if MODES[mode][3] is MESH_2D:
         # a 2-D solve reaches no 3-D kernel (K1, K2, their twins), in any
         # process
@@ -189,16 +204,19 @@ def test_cli_across_two_processes_matches_one(tmp_path):
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1",
                PRFDD_COORDINATOR=init, PRFDD_NUM_PROCESSES="2",
                PRFDD_BACKEND="gloo", PRFDD_RECORD=str(record))
+    # the region dump too: each process writes its own shards' files
+    dump = lambda name: ["--output-composite", str(tmp_path / name)]
     procs = [subprocess.Popen(
         [sys.executable, "-m", mt.LAUNCH.rsplit(".", 2)[0]] + CLI_ARGV
-        + ["--device", "cpu"], env=dict(env, PRFDD_PROCESS_ID=str(r)),
+        + dump("two.npz") + ["--device", "cpu"],
+        env=dict(env, PRFDD_PROCESS_ID=str(r)),
         cwd=mt.ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(2)]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        one = run_simulation(Config.from_args(CLI_ARGV), out=io.StringIO(),
-                             device="cpu")
+        one = run_simulation(Config.from_args(CLI_ARGV + dump("one.npz")),
+                             out=io.StringIO(), device="cpu")
     finally:
         torch.set_num_threads(threads)
     outs = mt.finish(procs, timeout=240)
@@ -224,6 +242,18 @@ def test_cli_across_two_processes_matches_one(tmp_path):
     # driver does: together they are the one-process run's
     err = max(rec["record"]["max_error"] for rec in recs)
     assert err == pytest.approx(one["max_error"], rel=1e-6)
+    # the two processes' region files (shards 0, 1 and 2, 3) against the
+    # one process's
+    for p in range(4):
+        a = np.load(tmp_path / f"one_s{p}.npz")
+        b = np.load(tmp_path / f"two_s{p}.npz")
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            if a[k].dtype.kind in "fc":
+                assert np.abs(a[k] - b[k]).max(initial=0.0) <= \
+                    1e-12 * np.abs(a[k]).max(initial=0.0), (p, k)
+            else:
+                assert np.array_equal(a[k], b[k]), (p, k)
 
 
 def test_owned_shards_and_backend_are_explicit(monkeypatch):

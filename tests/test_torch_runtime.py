@@ -301,12 +301,21 @@ def test_cli_takes_the_device_off_the_argv():
     assert cli.take_device(["3", "1"]) == (None, ["3", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--phase-report"],
-                                  ["--output-composite", "comp.npz"]])
-def test_cli_refuses_the_options_of_item_15b(flag):
-    with pytest.raises(NotImplementedError, match="15b"):
-        cli.main(["2", "1", "--mesh", "box", "--shape", "2,2,4",
-                  "--device", "cpu"] + flag)
+@pytest.mark.parametrize("flag", ["--phase-report", "--output-composite"])
+def test_cli_runs_the_phase_report_and_the_region_dump(flag, tmp_path,
+                                                       capsys):
+    path = str(tmp_path / "comp.npz")
+    extra = [flag] if flag == "--phase-report" else [flag, path]
+    assert cli.main(["2", "1", "--mesh", "box", "--shape", "2,2,4",
+                     "--device", "cpu"] + extra) == 0
+    out = capsys.readouterr().out
+    if flag == "--phase-report":
+        assert out.count("phase report") == 2
+        assert "total per iteration" in out
+    else:
+        assert f"composite-region fields written to {path}" in out
+        z = np.load(path)
+        assert z["group0_values"].shape + (3,) == z["group0_coords"].shape
 
 
 def test_cli_without_a_device_needs_the_card():
