@@ -34,7 +34,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
            composite_dd(poly_reduction=6, inner="amg", ptype=bfloat16);
            best of 3 timed with CUDA events, launch counts of one solve
   profile  one more solve under torch.profiler: the union of device
-           activity over the solve's wall time, and the top kernels
+           activity over the solve's wall time, and the top kernels (the
+           last phase, profile-parse, reads a 2-iteration solve's profile
+           both from the profiler's raw events, as every profile line
+           reads them, and through prof.events(): the busy time, the
+           event count and the K1 / K2 counts must agree)
   refine   f64 iterative refinement of that solve to 1e-10
   host-refine  the same f32 solve as the correction engine of the host
            f64 oracle (solvers/host_oracle.py: numpy operator and dssum on
@@ -89,8 +93,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
            K1 / K2 launches per composite apply (= G), the
            first residuals and the P = 5 count (+-1) against the JAX
            package's, bf16 after 20 steps and P = 8 f32 after 200 against
-           the JAX package's relative residual (within 2x), a profiled
-           P = 8 bf16 solve, two f64 refinement cycles of it against the
+           the JAX package's relative residual (within 2x), two f64
+           refinement cycles of the P = 8 bf16 solve against the
            JAX package's (within 2x); then f64 refinement to 1e-10 over 8
            shards (Kershaw (4, 4, 16) N=3, bf16 composite) and inner
            "fem-amg" at P = 8 (host setup by stage, A0 over the shards,
@@ -208,6 +212,40 @@ Phases, each printing JSON lines (any failure exits non-zero):
            scrambled unstructured composite (f32: residuals within 2e-2
            relative and r20 / r0 within 1.05x; f64: within 1e-9). No
            phase of these four may launch K1 or K2
+  (the scale-up phases below run in a child process of their own once
+  the 2-D child has ended, alone on the card: main() waits for them; a
+  "scale-up suite" line gives their seconds)
+  scaleup-32  the reference's headline mesh on the way (ROADMAP 4c):
+           `python -m <package> 7 6 1 1 --mesh kershaw --shape 32,32,32
+           --epsilon 0.3 --ptype bfloat16` in a subprocess (16,777,216
+           points), held to artifacts/scaleup_32cubed.json (the JAX
+           package's round 2): converged, r0 within 5e-3, max|u-u*|
+           within 2x, at most its 16 + 1 iterations, its Config fields;
+           r1-r3 within 15% of the round-3 record of the same mesh
+           (FGMRES-z16(4), whose first four steps FGMRES(20) shares);
+           seconds and card and host memory by stage. Then the f32
+           witness, studies/scaleup.run(32, 4, method, 4,
+           inner_solver="fcg", ptype="f32", refine_mode="none") on one
+           setup against
+           artifacts/scaleup_32cubed_fgmres-z164i4_isfcg_ptf32.json:
+           method "fgmres-z16" (the record's bf16 Z basis) with r0 within
+           5e-3, r1-r3 within 15% and max|u-u*| within 2x, and "fgmres"
+           (the Z basis in f32: no bf16 rounding anywhere) with r1-r3
+           within 5% and at most its 23 + 1 iterations besides
+  scaleup-64  Kershaw 64^3 N=7 (134,217,728 points) through
+           studies/scaleup.py: (a) K1 (bf16, f32, f64) and K2 (bf16, f32;
+           the bf16 mask, and mask and weight) on the 512^3 lattice
+           against their twins, timed warm beside their byte bounds,
+           before any solve state; (b) run(64, 4, "fgmres-z16", 4,
+           refine_mode="device") against
+           artifacts/scaleup_64cubed_fgmres-z164i4.json: 12 +- 1
+           iterations, r0 within 5e-3, r1-r3 within 15%, max|u-u*|
+           within 2x, refined in f64 on the card to 1e-7; seconds, card
+           and host memory by stage; (c) one more of its solves under the
+           profiler: busy share, top kernels, K1 / K2 launches an outer
+           iteration; (d) run(64, 4, "fcg", refine_mode="none") on (b)'s
+           mesh and Domain against artifacts/scaleup_64cubed.json: at most
+           its 17 + 1 iterations, r0, r1-r3 and max|u-u*| as in (b)
   cli      the main path as a user runs it (ROADMAP item 15a): (a) `python
            -m <package> 7 6 1 1 --mesh kershaw --shape 16,16,16 --epsilon
            0.3 --ptype bfloat16 --refine-tolerance 1e-10 --checkpoint DIR`
@@ -266,7 +304,8 @@ the driven paths, error, warm and cold time, plain time, bound and the
 share of the bound it reaches: this run's numbers only), one
 {"previous_design": ...} line (this run's warm times beside the constant
 table of the previous designs' times), the seconds each phase took
-(the 2-D suite's under "beside") and, last, the {"ok": true, "device":
+(the 2-D suite's under "beside", the scale-up suite's under "scaleup")
+and, last, the {"ok": true, "device":
 {...}}
 line.
 """
@@ -299,6 +338,9 @@ PEAK_BF16_TENSOR_FLOPS = 989e12
 # bit of the W intermediates, so two summation orders of the same passes
 # differ by a few 1e-6 of max (not by K1's 2e-7 of plain f32 round-off)
 K3_F32_TOL = 1e-5
+# K1 against its twin, of the twin's max: f32 and f64 round-off of the
+# kernel's summation order, bf16 the I/O rounding of the f32 sum
+KERNEL_TOL = {"float32": 2e-6, "float64": 1e-12, "bfloat16": 1e-2}
 # Warm device ms of the previous designs of these kernels (one thread per
 # point for K1 and K2, one block of 4 warps per element for K3; K3 at 512^3
 # as the study timed it), as an earlier version of this script timed them
@@ -490,6 +532,59 @@ def check_split_kernel(torch, kernels, dev, timed):
                 }
 
 
+def k1_bytes(U):
+    """K1's byte bound: u, the six metric lattices and the output, once."""
+    return 8 * U.numel() * U.element_size()
+
+
+def k2_bytes(U, kw):
+    """K2's byte bound: U in and out, and the mask and weight given."""
+    return U.numel() * (2 * U.element_size()
+                        + sum(t.element_size() for t in kw.values()))
+
+
+def k1_line(torch, kernels, U, G, n, phase, **info):
+    """K1 on (U, G, n) against its plain twin (a stack as its (P * Mz, My,
+    Mx) view): within KERNEL_TOL of the twin's max, and in bf16 also within
+    5% of the max of the f64 result. Returns the line, "ok" in it."""
+    flat = lambda t: t.reshape((-1,) + tuple(t.shape[-2:]))
+    name = str(U.dtype).replace("torch.", "")
+    out = flat(kernels.stiffness_lattice_3d(U, G, n)).double()
+    ref = kernels.stiffness_lattice_3d_plain(
+        flat(U), [flat(g) for g in G], n).double()
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    del ref
+    line = {"phase": phase, "kernel": "stiffness_lattice_3d",
+            "shape": tuple(U.shape), "n": n, "dtype": name, **info,
+            "max_abs_err": err, "rel_err": err / scale}
+    ok = err <= KERNEL_TOL[name] * scale
+    if name == "bfloat16":
+        oracle = kernels.stiffness_lattice_3d_plain(
+            flat(U).double(), [flat(g).double() for g in G], n)
+        e64 = (out - oracle).abs().max().item()
+        line["rel_err_vs_f64"] = e64 / oracle.abs().max().item()
+        ok = ok and e64 <= 0.05 * oracle.abs().max().item()
+    line["ok"] = ok
+    return line
+
+
+def k2_line(torch, kernels, U, n, phase, kw, **info):
+    """K2 on U with the mask and weight in ``kw`` against its plain twin:
+    bitwise, for the kernel rounds where the twin rounds, in every dtype.
+    Returns the line, "ok" in it."""
+    out = kernels.lattice_face_sum_3d(U, n, **kw).double()
+    ref = kernels.lattice_face_sum_3d_plain(U, n, **kw).double()
+    diff = (out - ref).abs()
+    err = diff.max().item()
+    rel = (diff / ref.abs().clamp(min=1.0)).max().item()
+    return {"phase": phase, "kernel": "lattice_face_sum_3d",
+            "shape": tuple(U.shape), "n": n,
+            "dtype": str(U.dtype).replace("torch.", ""), **info,
+            "mask_weight": sorted(kw), "max_abs_err": err, "rel_err": rel,
+            "ok": err == 0.0}
+
+
 def check_kernels(torch, kernels, dev):
     """Each kernel vs its plain twin on the card; returns the timed 128^3
     variants keyed by (kernel, dtype) and the warm ms at the p-multigrid
@@ -512,7 +607,6 @@ def check_kernels(torch, kernels, dev):
     # most 4 layers), which the wrapper takes as their (5 * Mz, My, Mx)
     # views; P = 4's views are the cubes above
     stacks = [((5, 4 * m, 16 * m, 16 * m), m, 0) for m in (8, 6, 4, 2)]
-    flat = lambda t: t.reshape((-1,) + tuple(t.shape[-2:]))
     for shape, n, offset in [((128, 128, 128), 8, 0), ((48, 40, 56), 8, 0),
                              ((12, 10, 14), 2, 0)] + odd + [
                                  (s, m, 0) for s, m in pmg_lattices] + stacks:
@@ -521,43 +615,25 @@ def check_kernels(torch, kernels, dev):
             U, G = U64.to(dt), [g.to(dt) for g in G64]
             if offset:
                 U, G = offset_view(U, offset), [offset_view(g, offset) for g in G]
-            out = flat(kernels.stiffness_lattice_3d(U, G, n))
-            ref = kernels.stiffness_lattice_3d_plain(flat(U), [flat(g) for g in G], n)
-            torch.cuda.synchronize()
-            scale = ref.double().abs().max().item()
-            err = (out.double() - ref.double()).abs().max().item()
-            line = {"phase": "kernels", "kernel": "stiffness_lattice_3d",
-                    "shape": shape, "n": n, "dtype": name,
-                    "offset": offset,
-                    "max_abs_err": err, "rel_err": err / scale}
-            tol = {"float32": 2e-6, "float64": 1e-12, "bfloat16": 1e-2}[name]
-            ok = err <= tol * scale
-            if name == "bfloat16":
-                oracle = kernels.stiffness_lattice_3d_plain(
-                    flat(U).double(), [flat(g).double() for g in G], n)
-                e64 = (out.double() - oracle).abs().max().item()
-                line["rel_err_vs_f64"] = e64 / oracle.abs().max().item()
-                ok = ok and e64 <= 0.05 * oracle.abs().max().item()
-            line["ok"] = ok
+            line = k1_line(torch, kernels, U, G, n, "kernels", offset=offset)
             if (shape, n) in pmg_lattices:
                 line["ms"] = cuda_ms(
                     lambda: kernels.stiffness_lattice_3d(U, G, n), 20)
-                line["bound_ms"] = (8 * U.numel() * U.element_size()
-                                    / HBM_BYTES_PER_S * 1e3)
+                line["bound_ms"] = k1_bytes(U) / HBM_BYTES_PER_S * 1e3
                 level_ms["stiffness_lattice_3d", shape, name] = line["ms"]
             emit(line)
-            if not ok:
+            if not line["ok"]:
                 raise AssertionError(f"stiffness_lattice_3d disagrees: {line}")
             if shape == (128, 128, 128):
                 npts = U.numel()
                 timed[("stiffness_lattice_3d", name)] = {
-                    "max_abs_err": err,
+                    "max_abs_err": line["max_abs_err"],
                     "ms": cuda_ms(lambda: kernels.stiffness_lattice_3d(U, G, n), 20),
                     "cold_ms": cuda_cold_ms(
                         lambda: kernels.stiffness_lattice_3d(U, G, n), 20),
                     "plain_ms": cuda_ms(
                         lambda: kernels.stiffness_lattice_3d_plain(U, G, n), 3),
-                    "bytes": 8 * npts * U.element_size(),
+                    "bytes": k1_bytes(U),
                     "flops": npts * (12 * n + 18),
                 }
     for shape, n, offset in [((128, 128, 128), 8, 0), ((24, 16, 40), 8, 0)
@@ -576,39 +652,26 @@ def check_kernels(torch, kernels, dev):
             if offset:
                 U, mask, w = (offset_view(t, offset) for t in (U, mask, w))
             for kw in ({}, {"mask": mask, "weight": w}, {"mask": mask}):
-                out = kernels.lattice_face_sum_3d(U, n, **kw)
-                ref = kernels.lattice_face_sum_3d_plain(U, n, **kw)
-                torch.cuda.synchronize()
-                diff = (out.double() - ref.double()).abs()
-                err = diff.max().item()
-                rel = (diff / ref.double().abs().clamp(min=1.0)).max().item()
-                # the kernel rounds where the twin rounds, in every dtype
-                ok = err == 0.0
-                line = {"phase": "kernels", "kernel": "lattice_face_sum_3d",
-                        "shape": shape, "n": n, "dtype": name,
-                        "offset": offset, "mask_weight": sorted(kw), "max_abs_err": err,
-                        "rel_err": rel, "ok": ok}
+                line = k2_line(torch, kernels, U, n, "kernels", kw,
+                               offset=offset)
                 if (shape, n) in pmg_lattices and set(kw) == {"mask"}:
                     line["ms"] = cuda_ms(
                         lambda: kernels.lattice_face_sum_3d(U, n, **kw), 50)
-                    line["bound_ms"] = (
-                        U.numel() * (2 * U.element_size() + mask.element_size())
-                        / HBM_BYTES_PER_S * 1e3)
+                    line["bound_ms"] = k2_bytes(U, kw) / HBM_BYTES_PER_S * 1e3
                     level_ms["lattice_face_sum_3d", shape, name] = line["ms"]
                 emit(line)
-                if not ok:
+                if not line["ok"]:
                     raise AssertionError(f"lattice_face_sum_3d disagrees: {line}")
                 if shape == (128, 128, 128) and set(kw) == {"mask"}:
                     npts = U.numel()
                     timed[("lattice_face_sum_3d", name)] = {
-                        "max_abs_err": err,
+                        "max_abs_err": line["max_abs_err"],
                         "ms": cuda_ms(lambda: kernels.lattice_face_sum_3d(U, n, **kw), 50),
                         "cold_ms": cuda_cold_ms(
                             lambda: kernels.lattice_face_sum_3d(U, n, **kw), 20),
                         "plain_ms": cuda_ms(
                             lambda: kernels.lattice_face_sum_3d_plain(U, n, **kw), 3),
-                        "bytes": npts * (2 * U.element_size()
-                                         + mask.element_size()),
+                        "bytes": k2_bytes(U, kw),
                         "flops": npts * 13,
                     }
     check_split_kernel(torch, kernels, dev, timed)
@@ -680,52 +743,102 @@ def check_face_sum_batched(torch, kernels, dev):
     return batched
 
 
-def profile_solve(torch, solve, f, phase="profile", top_n=12, families=None):
+K12_FAMILIES = {"k1": ["stiffness_kernel"], "k2": ["face_sum_kernel"]}
+
+
+def _device_events(torch, prof, raw=True):
+    """(name, start us, end us) of each device event of a profile: from
+    the profiler's raw kineto events, or (raw=False) from torch's
+    FunctionEvent list, ``prof.events()``, which parses every host op into
+    a tree first (8-98 s a pass on the card's host, PERF.md §6)."""
+    from torch.autograd import DeviceType
+    if not raw:
+        return [(e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # torch's parser skips hidden events where its build marks them. The
+    # times count from the trace's start, as torch's do: epoch
+    # nanoseconds over 1e3 keep a quarter microsecond in a double
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    return [(e.name(), (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3)
+            for e in res.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def _device_summary(events, families):
+    """(busy us: the union of the events' intervals, event count, {name[:70]:
+    (count, us)}, {family: {count, device_ms}})."""
+    spans, by_name = [], {}
+    for name, a, b in events:
+        spans.append((a, b))
+        key = name if len(name) < 70 else name[:70]
+        cnt, tot = by_name.get(key, (0, 0.0))
+        by_name[key] = (cnt + 1, tot + (b - a))
+    busy = 0.0
+    if spans:
+        spans.sort()
+        cur_a, cur_b = spans[0]
+        for a, b in spans[1:]:
+            if a > cur_b:
+                busy += cur_b - cur_a
+                cur_a, cur_b = a, b
+            else:
+                cur_b = max(cur_b, b)
+        busy += cur_b - cur_a
+    fams = {}
+    for label, subs in (families or {}).items():
+        hits = [(c, t) for k, (c, t) in by_name.items()
+                if any(x in k.lower() for x in subs)]
+        fams[label] = {"count": sum(c for c, _ in hits),
+                       "device_ms": sum(t for _, t in hits) / 1e3}
+    return busy, len(spans), by_name, fams
+
+
+def profile_solve(torch, solve, f, phase="profile", top_n=12, families=None,
+                  cross_check=False):
     """Device busy share and top kernels of one solve (torch.profiler);
     ``families``: {label: name substrings}, the device ms and count of the
-    kernels whose lower-case name holds one of a label's substrings."""
-    from torch.autograd import DeviceType
+    kernels whose lower-case name holds one of a label's substrings. The
+    device events come from the profiler's raw events; ``cross_check``
+    parses them through ``prof.events()`` as well and fails unless the
+    busy time, the event count and the families' counts agree."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solve(f)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        key = e.name if len(e.name) < 70 else e.name[:70]
-        cnt, tot = by_name.get(key, (0, 0.0))
-        by_name[key] = (cnt + 1, tot + (b - a))
-    if not spans:
+    busy, n, by_name, fams = _device_summary(
+        _device_events(torch, prof), families)
+    if not n:
         return {"phase": phase, "device_busy_share": "not measured",
                 "reason": "the profiler recorded no device activity"}
-    spans.sort()
-    busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_b:
-            busy += cur_b - cur_a
-            cur_a, cur_b = a, b
-        else:
-            cur_b = max(cur_b, b)
-    busy += cur_b - cur_a
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
     out = {"phase": phase, "profiled_wall_ms": wall_us / 1e3,
+           "profile_seconds": time.perf_counter() - t_start,
            "device_busy_ms": busy / 1e3,
            "device_busy_share": busy / wall_us,
-           "device_activities": len(spans),
+           "device_activities": n,
            "top": [{"name": k, "count": c, "ms": t / 1e3}
-                   for k, (c, t) in top]}
-    for label, subs in (families or {}).items():
-        hits = [(c, t) for k, (c, t) in by_name.items()
-                if any(x in k.lower() for x in subs)]
-        out[label] = {"count": sum(c for c, _ in hits),
-                      "device_ms": sum(t for _, t in hits) / 1e3}
+                   for k, (c, t) in top], **fams}
+    if cross_check:
+        t0 = time.perf_counter()
+        busy2, n2, _, fams2 = _device_summary(
+            _device_events(torch, prof, raw=False), families)
+        agree = (n2 == n and abs(busy2 - busy) <= 1e-9 * busy
+                 and all(fams2[k]["count"] == v["count"]
+                         for k, v in fams.items()))
+        out["events_parse"] = {
+            "torch": torch.__version__, "device_busy_ms": busy2 / 1e3,
+            "device_activities": n2, "families": fams2,
+            "seconds": time.perf_counter() - t0, "agree": agree}
+        if not agree:
+            raise AssertionError(f"the raw and the FunctionEvent parse of "
+                                 f"one profile disagree: {out}")
     return out
 
 
@@ -1448,7 +1561,7 @@ def check_launched(torch, kernels, dev, phase, checked):
         ref = kernels.stiffness_lattice_3d_plain(U, G, n).double()
         scale = ref.abs().max().item()
         rel = (out - ref).abs().max().item() / scale
-        ok = rel <= {"float32": 2e-6, "float64": 1e-12, "bfloat16": 1e-2}[dt]
+        ok = rel <= KERNEL_TOL[dt]
         if dt == "bfloat16":
             oracle = kernels.stiffness_lattice_3d_plain(
                 U.double(), [g.double() for g in G], n)
@@ -1714,7 +1827,7 @@ def run_composite_spmd(torch, kernels, dev, mesh, mk):
     far field z-merged by 2, G = 8) and P = 5 (slabs 4, 3, 3, 3, 3, G =
     6) in one process, ptype f32 and bf16; against the JAX package's
     counts and residuals (JAX_MAIN); P = 8 f32 as long as the JAX
-    package's run; a profiled P = 8 bf16 solve. Returns the launches."""
+    package's run. Returns the launches."""
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
@@ -1838,19 +1951,7 @@ def run_composite_spmd(torch, kernels, dev, mesh, mk):
         raise AssertionError(f"P = 8 off the reference's stagnation: {line}")
     del res
 
-    # P = 8 bf16: one solve under the profiler
     sd, dom, pre, u, f = keep[8, "bfloat16"]
-    solve = dom.solver(method="fgmres", max_iterations=SHORT_STEPS,
-                       precond=pre)
-    prof = profile_solve(torch, solve, f, phase="composite-profile", top_n=16)
-    best, res, _ = timed_solves(torch, kernels, solve, f, 1)
-    if isinstance(prof.get("device_busy_ms"), float):
-        prof["iterations"] = res.iterations
-        prof["activities_per_iteration"] = (prof["device_activities"]
-                                            / res.iterations)
-        prof["busy_share_of_unprofiled_solve"] = (
-            prof["device_busy_ms"] / (1e3 * best))
-    emit(prof)
 
     # f64 refinement of the P = 8 bf16 solve, two cycles as the JAX
     # package ran them: both stall after the first
@@ -2473,11 +2574,6 @@ def _tensor_tree_equal(a, b):
     return same, differ
 
 
-def _host_rss_gb():
-    import resource
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-
-
 def run_unstructured_femamg(torch, kernels, dev, phase_done):
     """artifacts/femamg_unstructured_scrambled.json's fem-amg run on the
     card: scrambled Kershaw 16^3 N=7 (seed 7, one shard), f32 FGMRES(20)
@@ -2493,6 +2589,7 @@ def run_unstructured_femamg(torch, kernels, dev, phase_done):
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.unstructured import composite_dd_unstructured
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.memory import host_peak_rss_gb
     total = {}
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "artifacts/femamg_unstructured_scrambled.json")
@@ -2521,9 +2618,9 @@ def run_unstructured_femamg(torch, kernels, dev, phase_done):
         return res, hist[torch.isfinite(hist)]
 
     torch.cuda.reset_peak_memory_stats()
-    rss0 = _host_rss_gb()
+    rss0 = host_peak_rss_gb()
     pre, fresh_s = build(mk, mesh)
-    rss1 = _host_rss_gb()
+    rss1 = host_peak_rss_gb()
     st = pre.extra["setup_seconds"]
     stages = {"p1_entries": st["fem_p1_entries"],
               "slave_fold": st["fem_slave_fold"] + st["fem_q_map"],
@@ -3931,10 +4028,11 @@ def run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done):
 SUITE_2D_TIMEOUT = 900
 
 
-def run_2d_suite(record):
-    """Every 2-D phase in this process, each followed by check_launched as
-    in main(); writes the launches and each phase's seconds to ``record``
-    (JSON). Run by ``start_2d_suite``."""
+def run_child_phases(record, body):
+    """``body(torch, kernels, dev, path_counts, phase_done, checked)`` in
+    this process (a child that ``start_suite`` started), every phase
+    followed by check_launched as in main(); writes the launches and each
+    phase's seconds to ``record`` (JSON)."""
     import torch
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import cuda_lib, kernels
     cuda_lib.build()
@@ -3949,35 +4047,43 @@ def run_2d_suite(record):
         phase_seconds[name] = now - clock[0]
         clock[0] = now
 
-    run_2d_phases(torch, kernels, dev, path_counts, phase_done)
-    run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done)
-    run_multiprocess_2d(torch, kernels, dev, path_counts)
-    phase_done("multiprocess-2d")
+    body(torch, kernels, dev, path_counts, phase_done, checked)
     with open(record, "w") as fh:
         json.dump({"path_counts": path_counts, "phase_seconds": phase_seconds},
                   fh)
 
 
-def start_2d_suite():
-    """``run_2d_suite`` in a child process (its own session, so that
-    ``stop_2d_suite`` also stops the workers of multiprocess-2d), its
-    output to a file that ``finish_2d_suite`` prints."""
+def run_2d_suite(record):
+    """Every 2-D phase in a child process: ``start_suite("run_2d_suite")``."""
+    def body(torch, kernels, dev, path_counts, phase_done, checked):
+        run_2d_phases(torch, kernels, dev, path_counts, phase_done)
+        run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done)
+        run_multiprocess_2d(torch, kernels, dev, path_counts)
+        phase_done("multiprocess-2d")
+
+    run_child_phases(record, body)
+
+
+def start_suite(entry):
+    """``chip_smoke.<entry>(record)`` in a child process (its own process
+    group, so that ``stop_suite`` also stops the child's own workers), its output
+    to a file that ``finish_suite`` prints."""
     import os
     import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
-    work = tempfile.mkdtemp(prefix="chip_smoke_2d_")
+    work = tempfile.mkdtemp(prefix=f"chip_smoke_{entry}_")
     record = os.path.join(work, "record.json")
     log = open(os.path.join(work, "log.txt"), "w+")
     proc = subprocess.Popen(
         [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke.run_2d_suite({record!r})"],
+         f"import chip_smoke; chip_smoke.{entry}({record!r})"],
         cwd=root, stdout=log, stderr=subprocess.STDOUT,
         start_new_session=True)
     return {"proc": proc, "log": log, "work": work, "record": record,
             "t0": time.time()}
 
 
-def stop_2d_suite(suite):
+def stop_suite(suite):
     """Kill the child and its workers if they still run; remove its files."""
     import os
     import shutil
@@ -3989,25 +4095,24 @@ def stop_2d_suite(suite):
     shutil.rmtree(suite["work"], ignore_errors=True)
 
 
-def finish_2d_suite(suite):
-    """Wait for the child; print its output; fail if it failed. Returns its
-    launches and each 2-D phase's seconds."""
+def finish_suite(suite, label, timeout):
+    """Wait for the child, at most ``timeout`` seconds from its start;
+    print its output; fail if it failed. Returns its launches and each of
+    its phases' seconds."""
     proc = suite["proc"]
     try:
-        rc = proc.wait(timeout=max(
-            SUITE_2D_TIMEOUT - (time.time() - suite["t0"]), 1))
+        rc = proc.wait(timeout=max(timeout - (time.time() - suite["t0"]), 1))
     except subprocess.TimeoutExpired:
         rc = None
     suite["log"].seek(0)
     text = suite["log"].read()
     print(text, end="", flush=True)
     if rc != 0:
-        raise AssertionError(f"the 2-D phases failed (rc {rc}, "
-                             f"{SUITE_2D_TIMEOUT} s allowed):\n"
-                             f"{text[-4000:]}")
+        raise AssertionError(f"the {label} failed (rc {rc}, {timeout} s "
+                             f"allowed):\n{text[-4000:]}")
     with open(suite["record"]) as fh:
         out = json.load(fh)
-    emit({"phase": "2-D suite", "seconds": time.time() - suite["t0"],
+    emit({"phase": label, "seconds": time.time() - suite["t0"],
           "phase_seconds": out["phase_seconds"]})
     return out["path_counts"], out["phase_seconds"]
 
@@ -4029,7 +4134,8 @@ CLI_NEK = {"shape": (16, 16, 16), "order": 7, "reduction": 6, "seed": 7,
 CLI_TIMEOUT = 600
 CLI_HIST_RTOL = 1e-6         # a rerun of the same solve on the same card
 CLI_SOLVE_RATIO = 1.5        # solve.run against the main path's solve
-                             # timed around it
+                             # timed just after it
+CLI_YARD_ROUNDS = 3          # of yardstick_hook
 CLI_NEK_R0 = 1e-6
 CLI_NEK_R13 = 1e-4
 CLI_MP_COUNT = 0.02          # of the pmg phase's one-shard Jacobi count
@@ -4057,18 +4163,21 @@ def _add_signatures(kernels, signatures):
             getattr(kernels, name).launches.signatures.add(_as_tuple(sig))
 
 
-def run_cli_processes(kernels, argv, nproc, record, path_counts, extra=None):
+def run_cli_processes(kernels, argv, nproc, record, path_counts, extra=None,
+                      head=None):
     """``python -m <package> argv`` in ``nproc`` processes (one group with
     gloo and a file store beside ``record`` when nproc > 1); returns each
     process's (stdout, record file, seconds). Their launches join
     ``path_counts`` and their launch signatures the next check_launched;
-    fails on a non-zero exit or at CLI_TIMEOUT, stopping every process."""
+    fails on a non-zero exit or at CLI_TIMEOUT, stopping every process.
+    ``head`` stands in for ``python -m <package>`` (the command before
+    ``argv``)."""
     return finish_cli_processes(
-        kernels, start_cli_processes(argv, nproc, record, extra),
+        kernels, start_cli_processes(argv, nproc, record, extra, head),
         path_counts)
 
 
-def start_cli_processes(argv, nproc, record, extra=None):
+def start_cli_processes(argv, nproc, record, extra=None, head=None):
     """Start ``run_cli_processes``' processes; ``finish_cli_processes``
     waits for them."""
     root, env = _cli_env(record, extra)
@@ -4077,7 +4186,7 @@ def start_cli_processes(argv, nproc, record, extra=None):
                     "PRFDD_NUM_PROCESSES": str(nproc),
                     "PRFDD_BACKEND": "gloo"})
     procs = [subprocess.Popen(
-        [sys.executable, "-m", PKG] + argv, cwd=root,
+        (head or [sys.executable, "-m", PKG]) + argv, cwd=root,
         env=dict(env, PRFDD_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(nproc)]
     return argv, record, procs, time.time()
@@ -4125,15 +4234,81 @@ def _setup_seconds(rec):
             if k.startswith("setup")}
 
 
-def run_cli(torch, kernels, dev, path_counts, work, solve_now):
+def yardstick_hook(torch, kernels, solve, f):
+    """An ``after_solve`` hook for ``runtime/driver.simulate`` and the dict
+    it fills: right after a run's own timed solves, in the run's process,
+    the run's solve and ``solve(f)`` (the main path's) are timed in turn by
+    CUDA events, CLI_YARD_ROUNDS times each. The dict holds their seconds
+    ("cli", "main"), every solve's iterations and the launches the hook
+    made, so that the host's drift, which moves one solve's time by up to
+    2x within seconds (PERF.md §7), moves both sides alike."""
+    out = {"cli": [], "main": [], "iterations": [], "launches": {}}
+
+    def timed(run, x):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = run(x)
+        stop.record()
+        torch.cuda.synchronize()
+        out["iterations"].append(int(res.iterations))
+        return start.elapsed_time(stop) / 1e3
+
+    def hook(dom, cli_solve, cli_f):
+        before = kernels.counts()
+        for _ in range(CLI_YARD_ROUNDS):
+            out["cli"].append(timed(cli_solve, cli_f))
+            out["main"].append(timed(solve, f))
+        out["launches"] = _less(kernels.counts(), before)
+
+    return hook, out
+
+
+def _less(counts, minus):
+    return {name: {dt: n - minus.get(name, {}).get(dt, 0)
+                   for dt, n in by_dtype.items()}
+            for name, by_dtype in counts.items()}
+
+
+def cli_beside_yardstick():
+    """The cli phase's (a), in a child process: ``python -m <package>`` with
+    this process's arguments, run through runpy with ``yardstick_hook`` on
+    the main path built here first; the hook's readings go to
+    ``$PRFDD_RECORD.yardstick.json``. Exits with the CLI's code."""
+    import os
+    import runpy
+    import torch
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import cuda_lib, kernels
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime import driver
+    cuda_lib.build()
+    cuda_lib.load()
+    f, solve = build_main_path(torch, torch.device("cuda"))[6:8]
+    solve(f)
+    hook, yard = yardstick_hook(torch, kernels, solve, f)
+    driver.simulate = partial(driver.simulate, after_solve=hook)
+    kernels.reset_counts()
+    kernels.take_signatures()
+    try:
+        runpy.run_module(PKG, run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    with open(os.environ["PRFDD_RECORD"] + ".yardstick.json", "w") as fh:
+        json.dump(yard, fh)
+    sys.exit(rc)
+
+
+def run_cli(torch, kernels, dev, path_counts, work, main_solve, main_f):
     """(a) the main path through the CLI in a subprocess, writing its
     checkpoint; (b) the same command in this process with the host
     refinement, reading the checkpoint with the mesh generator and the
     vertex-chain builder patched to raise. Each run's solve.run is held
-    to ``solve_now()``, the main path's solve in this process timed just
-    before and just after that run (the mean of the two): the host's
-    speed drifts within a run (PERF.md §7), so the solve phase's reading
-    of many minutes before is no yardstick."""
+    to the main path's solve ``main_solve(main_f)``, timed by ``yardstick_hook`` in
+    the run's process right after the run's own timed solves and in turn
+    with the run's solve (for (a) the subprocess builds the main path
+    itself: ``cli_beside_yardstick``). The host's speed drifts within a
+    run, so a yardstick taken many seconds before or after, or in another
+    process, is none (PERF.md §7)."""
     import contextlib
     import io
     import os
@@ -4144,10 +4319,14 @@ def run_cli(torch, kernels, dev, path_counts, work, solve_now):
     ck = os.path.join(work, "checkpoint")
     argv = CLI_MAIN + ["--checkpoint", ck]
     solve, refine = READINGS["solve"], READINGS["refine"]
-    yard = [solve_now()]
+    record_a = os.path.join(work, "cli_a")
     (log_a, rec_a, seconds_a), = run_cli_processes(
-        kernels, argv, 1, os.path.join(work, "cli_a"), path_counts)
-    yard.append(solve_now())
+        kernels, argv, 1, record_a, path_counts,
+        head=[sys.executable, "-c",
+              "import chip_smoke; chip_smoke.cli_beside_yardstick()"])
+    with open(record_a + ".yardstick.json") as fh:
+        yard_a = json.load(fh)
+    counts_a = _less(rec_a["counts"], yard_a["launches"])
     a = rec_a["record"]
     files = sorted(os.listdir(ck))
 
@@ -4159,10 +4338,12 @@ def run_cli(torch, kernels, dev, path_counts, work, solve_now):
     def boom(*args, **kw):
         raise AssertionError("the CLI built setup a checkpoint holds")
 
+    hook, yard_b = yardstick_hook(torch, kernels, main_solve, main_f)
     saved = (tg.kershaw_mesh, amgc.vertex_q1_hierarchy,
-             sub.vertex_q1_hierarchy)
+             sub.vertex_q1_hierarchy, cli.simulate)
     tg.kershaw_mesh = amgc.vertex_q1_hierarchy = boom
     sub.vertex_q1_hierarchy = boom
+    cli.simulate = partial(cli.simulate, after_solve=hook)
     record_b = os.path.join(work, "cli_b")
     os.environ["PRFDD_RECORD"] = record_b
     buf = io.StringIO()
@@ -4173,13 +4354,12 @@ def run_cli(torch, kernels, dev, path_counts, work, solve_now):
             rc_b = cli.main(argv + ["--refine-mode", "host"])
     finally:
         tg.kershaw_mesh, amgc.vertex_q1_hierarchy, \
-            sub.vertex_q1_hierarchy = saved
+            sub.vertex_q1_hierarchy, cli.simulate = saved
         del os.environ["PRFDD_RECORD"]
     torch.cuda.synchronize()
     seconds_b = time.time() - t0
-    counts_b = kernels.counts()
-    add_counts(path_counts, counts_b)
-    yard.append(solve_now())
+    add_counts(path_counts, kernels.counts())
+    counts_b = _less(kernels.counts(), yard_b["launches"])
     with open(record_b + ".rank0.json") as fh:
         rec_b = json.load(fh)
     b = rec_b["record"]
@@ -4205,25 +4385,29 @@ def run_cli(torch, kernels, dev, path_counts, work, solve_now):
                   "history_rel_diff_vs_solve": rel(a["residual_history"],
                                                    solve["history"]),
                   "solve_run_seconds": a["solve_seconds"],
-                  "yardstick_seconds": yard[:2],
+                  "yardstick_seconds": yard_a["main"],
+                  "cli_event_seconds": yard_a["cli"],
                   "solve_run_over_yardstick": a["solve_seconds"]
-                  / (sum(yard[:2]) / 2),
+                  / min(yard_a["main"]),
+                  "cli_over_main": min(yard_a["cli"]) / min(yard_a["main"]),
                   "solve_phase_seconds": solve["seconds"],
                   "refined_rel_residual": a["refined_rel_residual"],
                   "refined_cycles": a["refined_cycles"],
                   "refine_phase": [refine["rel_residual"], refine["cycles"]],
                   "setup_seconds": _setup_seconds(a),
                   "checkpoint_files": files,
-                  "k1": k1(rec_a["counts"]), "k2": k2(rec_a["counts"]),
+                  "k1": k1(counts_a), "k2": k2(counts_a),
                   "timer_report": _timer_lines(log_a)},
             "b": {"seconds": seconds_b, "rc": rc_b,
                   "iterations": b["iterations"],
                   "history_rel_diff_vs_a": rel(b["residual_history"],
                                                a["residual_history"]),
                   "solve_run_seconds": b["solve_seconds"],
-                  "yardstick_seconds": yard[1:],
+                  "yardstick_seconds": yard_b["main"],
+                  "cli_event_seconds": yard_b["cli"],
                   "solve_run_over_yardstick": b["solve_seconds"]
-                  / (sum(yard[1:]) / 2),
+                  / min(yard_b["main"]),
+                  "cli_over_main": min(yard_b["cli"]) / min(yard_b["main"]),
                   "refined_rel_residual": b["refined_rel_residual"],
                   "refined_cycles": b["refined_cycles"],
                   "host_refine_phase": READINGS["host_refine"][
@@ -4233,11 +4417,14 @@ def run_cli(torch, kernels, dev, path_counts, work, solve_now):
                   "timer_report": _timer_lines(log_b)}}
     emit(line)
     ok = (a["converged"] and a["iterations"] == solve["iterations"]
+          and all(its == solve["iterations"] for its in
+                  yard_a["iterations"] + yard_b["iterations"])
+          and len(yard_a["main"]) == len(yard_b["main"]) == CLI_YARD_ROUNDS
           and line["a"]["history_rel_diff_vs_solve"] <= CLI_HIST_RTOL
           and a["refined_rel_residual"] <= 1e-10
           and a["refined_cycles"] <= refine["cycles"]
           and files == want_files
-          and k1(rec_a["counts"]) > 0 and k2(rec_a["counts"]) > 0
+          and k1(counts_a) > 0 and k2(counts_a) > 0
           and plain_calls(rec_a["counts"]) == 0
           and rc_b == 0 and b["converged"]
           and line["b"]["history_rel_diff_vs_a"] <= CLI_HIST_RTOL
@@ -4246,8 +4433,9 @@ def run_cli(torch, kernels, dev, path_counts, work, solve_now):
           and plain_calls(counts_b) == 0
           and all("solve.run:" in " ".join(t) for t in
                   (line["a"]["timer_report"], line["b"]["timer_report"]))
-          and all(1 / CLI_SOLVE_RATIO <= line[k]["solve_run_over_yardstick"]
-                  <= CLI_SOLVE_RATIO for k in ("a", "b")))
+          and all(1 / CLI_SOLVE_RATIO <= line[k][r] <= CLI_SOLVE_RATIO
+                  for k in ("a", "b")
+                  for r in ("solve_run_over_yardstick", "cli_over_main")))
     if not ok:
         raise AssertionError(f"the cli phase failed its checks: {line}")
 
@@ -4370,18 +4558,8 @@ def run_cli_phases(torch, kernels, dev, path_counts, phase_done, solve, f):
     """The three CLI phases, in order, in one temporary directory;
     ``solve(f)`` is the main path's solve, the cli phase's yardstick."""
     import tempfile
-
-    def solve_now():
-        seconds, res, counts = best_solve_seconds(torch, kernels, solve, f)
-        add_counts(path_counts, counts)
-        if res.iterations != READINGS["solve"]["iterations"]:
-            raise AssertionError(f"the main path's solve took "
-                                 f"{res.iterations} iterations, the solve "
-                                 f"phase's {READINGS['solve']['iterations']}")
-        return seconds
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
-        run_cli(torch, kernels, dev, path_counts, work, solve_now)
+        run_cli(torch, kernels, dev, path_counts, work, solve, f)
         phase_done("cli")
         run_cli_nek(torch, kernels, dev, path_counts, work)
         phase_done("cli-nek")
@@ -4682,13 +4860,351 @@ def run_host_refine(torch, kernels, dom, mesh, solve, u_star, device_ref):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The reference's headline mesh (ROADMAP §4c): Kershaw eps=0.3 32^3 N=7
+# (16,777,216 points) through the CLI a user types, and 64^3 N=7
+# (134,217,728 points) through studies/scaleup.py, the port of the JAX
+# package's artifacts/run_64cubed.py. Both run in a child process that
+# main() starts once the 2-D child has finished and then waits for: no
+# other phase runs on the card meanwhile, and the 64^3 setup's host and
+# card memory leave with the child.
+
+SCALEUP_32 = ["7", "6", "1", "1", "--mesh", "kershaw", "--shape",
+              "32,32,32", "--epsilon", "0.3", "--ptype", "bfloat16"]
+# the JAX package's records of the same configurations: their counts,
+# residuals and errors are held here, nothing else of them
+SCALEUP_RECORDS = {
+    "32": "artifacts/scaleup_32cubed.json",
+    "32-z16": "artifacts/scaleup_32cubed_fgmres-z164i4.json",
+    "32-f32": "artifacts/scaleup_32cubed_fgmres-z164i4_isfcg_ptf32.json",
+    "fgmres-z16": "artifacts/scaleup_64cubed_fgmres-z164i4.json",
+    "fcg": "artifacts/scaleup_64cubed.json"}
+SCALEUP_COUNT_WINDOW = 1
+SCALEUP_R0_RTOL = 5e-3
+# r1-r3 against a TPU record, relative: a run that rounds to bf16 (a bf16
+# composite or Z basis) rounds at other places on the card than XLA's
+# fusions do on the TPU (the card read 0.89-1.10x the records); a run that
+# rounds to nothing narrower than f32 within 5%
+SCALEUP_R13_RTOL = {"bf16": 0.15, "f32": 0.05}
+SCALEUP_ERR_RATIO = 2.0
+SCALEUP_LATTICE = (512, 512, 512)     # 64^3 elements at N = 7
+SCALEUP_TIMEOUT = 900
+
+
+def _scaleup_record(key):
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, SCALEUP_RECORDS[key])) as fh:
+        return json.load(fh)
+
+
+def _held_to_record(its, hist, err, ref, ptype):
+    """{check: passed} of a run against a JAX record: the count within
+    SCALEUP_COUNT_WINDOW, r0 within SCALEUP_R0_RTOL, r1-r3 each within
+    SCALEUP_R13_RTOL[ptype] and max|u - u*| within a factor
+    SCALEUP_ERR_RATIO; beside them r1-r3 over the record's."""
+    r = ref["residual_history"]
+    ratios = [hist[k] / r[k] for k in (1, 2, 3)] if len(hist) > 3 else []
+    return {
+        "iterations": abs(its - ref["iterations"]) <= SCALEUP_COUNT_WINDOW,
+        "r0": abs(hist[0] / r[0] - 1.0) <= SCALEUP_R0_RTOL,
+        "r1_r3": bool(ratios) and all(abs(x - 1.0) <= SCALEUP_R13_RTOL[ptype]
+                                      for x in ratios),
+        "max_error": (1.0 / SCALEUP_ERR_RATIO <= err / ref["max_error"]
+                      <= SCALEUP_ERR_RATIO)}, ratios
+
+
+def _k12(counts):
+    return (sum(counts.get("stiffness_lattice_3d", {}).values()),
+            sum(counts.get("lattice_face_sum_3d", {}).values()))
+
+
+def run_scaleup_32(torch, kernels, dev, path_counts, work):
+    """artifacts/scaleup_32cubed.json's configuration through the CLI in a
+    subprocess (the driver's warm-up and best of 3, no refinement), its
+    record read through PRFDD_RECORD. That record is the JAX package's
+    round 2 (BASELINE.md: "was 1.20 s / 16 in round 2"), whose composite
+    took 16 iterations where the same mesh's round-3 record of the script
+    (FGMRES-z16(4), scaleup_32cubed_fgmres-z164i4.json) takes 12. FGMRES(20)
+    and FGMRES(4) take the same first four steps, so the run is held to
+    the round-2 record's r0 and max|u - u*|, to no more iterations than its
+    count, to its configuration, and to the round-3 record's r1-r3. Then
+    the f32 witness: the f32 composite's record (FGMRES-z16(4), inner
+    FCG(4)) through studies/scaleup.py, held to r0, r1-r3 within 15% and
+    max|u - u*|, and the same with its Z basis in f32, held to r0, r1-r3
+    within 5%, max|u - u*| and no more than its count + 1."""
+    import os
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import scaleup
+    ref, ref_z16 = _scaleup_record("32"), _scaleup_record("32-z16")
+    (log, rec, seconds), = run_cli_processes(
+        kernels, SCALEUP_32, 1, os.path.join(work, "scaleup32"), path_counts)
+    r = rec["record"]
+    hist, its = r["residual_history"], r["iterations"]
+    k1, k2 = _k12(rec["counts"])
+    # both records hold the configuration as Config.to_json's text; the
+    # record's is an earlier JAX Config's (fewer fields, a cap of 100
+    # iterations against today's 500), so its own fields are compared,
+    # but for its checkpoint directory and the cap
+    cfg, ref_cfg = json.loads(r["config"]), json.loads(ref["config"])
+    config_diff = sorted(k for k in ref_cfg
+                         if k not in ("checkpoint", "max_iterations")
+                         and cfg.get(k) != ref_cfg[k])
+    held, _ = _held_to_record(its, hist, r["max_error"], ref, "bf16")
+    held_z16, r13 = _held_to_record(its, hist, r["max_error"], ref_z16,
+                                    "bf16")
+    checks = {"converged": r["converged"], "r0": held["r0"],
+              "max_error": held["max_error"],
+              "iterations": its <= ref["iterations"] + SCALEUP_COUNT_WINDOW,
+              "r1_r3_vs_record_z16": held_z16["r1_r3"],
+              "config": not config_diff, "kernels": k1 > 0 and k2 > 0,
+              "plain_calls": plain_calls(rec["counts"]) == 0}
+    line = {"phase": "scaleup-32", "argv": " ".join(SCALEUP_32),
+            "points": 32 ** 3 * 512, "seconds": seconds,
+            "iterations": its, "record_iterations": ref["iterations"],
+            "record_z16_iterations": ref_z16["iterations"],
+            "residuals": hist[:4],
+            "record_residuals": ref["residual_history"][:4],
+            "record_z16_residuals": ref_z16["residual_history"][:4],
+            "r1_r3_over_record_z16": r13,
+            "max_error": r["max_error"],
+            "record_max_error": ref["max_error"],
+            "solve_run_seconds": r["solve_seconds"],
+            "ms_per_iteration": 1e3 * r["solve_seconds"] / max(its, 1),
+            "timers": {k: v["total_s"] for k, v in r["timers"].items()},
+            "stages": rec["stages"], "k1": k1, "k2": k2,
+            "config_diff": config_diff, "checks": checks,
+            "timer_report": _timer_lines(log)}
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"scaleup-32 failed its checks: {line}")
+
+    # the f32 composite's record, as recorded (bf16 Z basis) and with its
+    # Z basis in f32, on one setup. On the card the bf16 basis moves r1-r3
+    # by 4-7% while a one-ulp change of f moves them by < 1e-4, and the f32
+    # basis gives the record's r1-r3 (studies/rounding_spread.py, PERF.md
+    # §6): the TPU run did not round its first Z vectors to bf16. So the
+    # recorded form is held as a bf16 run, the f32 basis as an f32 one
+    ref = _scaleup_record("32-f32")
+    setup = scaleup.build_setup(32, device=dev)
+    for method, window in (("fgmres-z16", "bf16"), ("fgmres", "f32")):
+        kernels.reset_counts()
+        rec = scaleup.run(32, 4, method, 4, inner_solver="fcg", ptype="f32",
+                          refine_mode="none", setup=setup)
+        counts = kernels.counts()
+        add_counts(path_counts, counts)
+        hist, its = rec["residual_history"], rec["iterations"]
+        held, r13 = _held_to_record(its, hist, rec["max_error"], ref, window)
+        checks = {"converged": rec["converged"], "r0": held["r0"],
+                  "r1_r3": held["r1_r3"], "max_error": held["max_error"],
+                  "kernels": min(_k12(counts)) > 0,
+                  "plain_calls": plain_calls(counts) == 0}
+        if window == "f32":
+            checks["iterations"] = its <= ref["iterations"] + SCALEUP_COUNT_WINDOW
+        k = min(len(hist), len(ref["residual_history"]))
+        line = {"phase": "scaleup-32-f32", "record": rec,
+                "record_solver": ref["solver"],
+                "record_iterations": ref["iterations"],
+                "record_residuals": ref["residual_history"][:4],
+                "record_max_error": ref["max_error"],
+                "r1_r3_window": SCALEUP_R13_RTOL[window],
+                "r1_r3_over_record": r13,
+                "history_over_record": [hist[i] / ref["residual_history"][i]
+                                        for i in range(k)],
+                "ms_per_iteration": 1e3 * rec["solve_seconds"] / max(its, 1),
+                "launches": counts, "checks": checks}
+        emit(line)
+        if not all(checks.values()):
+            raise AssertionError(f"scaleup-32-f32 failed its checks: "
+                                 f"{checks}")
+
+
+def check_scaleup_kernels(torch, kernels, dev, checked):
+    """K1 in bf16, f32 and f64 and K2 in bf16 and f32 (the main path's
+    bf16 mask, and mask and weight) on the 512^3 lattice of 64^3 N=7, each
+    launched against its plain twin as the kernels phase holds it
+    (``k1_line``, ``k2_line``) and timed warm beside its byte bound; their
+    launch signatures join ``checked``."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    shape, n = SCALEUP_LATTICE, 8
+    rand = lambda: torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float64)
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
+    U64, G64 = rand(), [rand() for _ in range(6)]
+    for name, dt in dts.items():
+        U, G = U64.to(dt), [g.to(dt) for g in G64]
+        line = k1_line(torch, kernels, U, G, n, "scaleup-kernels")
+        line["ms"] = cuda_ms(lambda: kernels.stiffness_lattice_3d(U, G, n),
+                             5, warmup=1)
+        line["bound_ms"] = k1_bytes(U) / HBM_BYTES_PER_S * 1e3
+        line["share_of_bound"] = line["bound_ms"] / line["ms"]
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"stiffness_lattice_3d disagrees at 512^3: "
+                                 f"{line}")
+        checked.add(("stiffness_lattice_3d", name, shape, n))
+        del U, G
+    del G64
+    mask = (rand() > 0).to(torch.bfloat16)
+    w = (1.0 / 2.0 ** torch.randint(0, 4, shape, generator=gen,
+                                    device=dev)).to(torch.bfloat16)
+    for name in ("float32", "bfloat16"):
+        U = U64.to(dts[name])
+        for kw in ({"mask": mask}, {"mask": mask, "weight": w}):
+            line = k2_line(torch, kernels, U, n, "scaleup-kernels", kw)
+            line["ms"] = cuda_ms(lambda: kernels.lattice_face_sum_3d(U, n, **kw),
+                                 10, warmup=1)
+            line["bound_ms"] = k2_bytes(U, kw) / HBM_BYTES_PER_S * 1e3
+            line["share_of_bound"] = line["bound_ms"] / line["ms"]
+            emit(line)
+            if not line["ok"]:
+                raise AssertionError(f"lattice_face_sum_3d disagrees at "
+                                     f"512^3: {line}")
+            checked.add(("lattice_face_sum_3d", name, shape, n, "bfloat16",
+                         True, "weight" in kw))
+    kernels.take_signatures()
+
+
+def run_scaleup_64(torch, kernels, dev, path_counts, checked):
+    """(a) K1 and K2 at 512^3 against their twins before any solve state;
+    (b) studies/scaleup.run(64, 4, "fgmres-z16", 4, refine_mode="device"),
+    held to artifacts/scaleup_64cubed_fgmres-z164i4.json and refined in
+    f64 to 1e-7; (c) one more of its solves under the profiler, its K1 and
+    K2 launches counted; (d) the FCG record's configuration,
+    run(64, 4, "fcg", refine_mode="none") on (b)'s mesh and Domain."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import scaleup
+    check_scaleup_kernels(torch, kernels, dev, checked)
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    setup = scaleup.build_setup(64, device=dev)
+    prof = {}
+
+    def profiled(dom, solve, f):
+        before = _k12(kernels.counts())
+        prof.update(profile_solve(torch, solve, f, phase="scaleup-64-profile",
+                                  top_n=14, families=K12_FAMILIES))
+        prof["launches_k1_k2"] = [a - b for a, b in
+                                  zip(_k12(kernels.counts()), before)]
+
+    rec = scaleup.run(64, 4, "fgmres-z16", 4, refine_mode="device",
+                      setup=setup, after_solve=profiled)
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    ref = _scaleup_record("fgmres-z16")
+    hist, its = rec["residual_history"], rec["iterations"]
+    checks, r13 = _held_to_record(its, hist, rec["max_error"], ref, "bf16")
+    checks.update(converged=rec["converged"],
+                  refined=bool(rec["refined_converged"])
+                  and rec["refined_rel_residual"] <= scaleup.REFINE_TOLERANCE,
+                  kernels=min(_k12(counts)) > 0,
+                  plain_calls=plain_calls(counts) == 0)
+    k1, k2 = prof.get("launches_k1_k2", (0, 0))
+    line = {"phase": "scaleup-64", "record": rec,
+            "record_iterations": ref["iterations"],
+            "record_residuals": ref["residual_history"][:4],
+            "record_max_error": ref["max_error"],
+            "record_refined": [ref["refined_rel_residual"],
+                               ref["refined_cycles"],
+                               ref["refined_inner_iterations"]],
+            "r1_r3_over_record": r13,
+            "ms_per_iteration": 1e3 * rec["solve_seconds"] / max(its, 1),
+            "k1_per_iteration": k1 / max(its, 1),
+            "k2_per_iteration": k2 / max(its, 1),
+            "launches": counts, "checks": checks}
+    emit(line)
+    if isinstance(prof.get("device_busy_ms"), float):
+        prof["busy_share_of_unprofiled_solve"] = (
+            prof["device_busy_ms"] / (1e3 * rec["solve_seconds"]))
+        prof["activities_per_iteration"] = prof["device_activities"] / its
+        for fam in K12_FAMILIES:
+            prof[fam]["per_iteration"] = prof[fam]["count"] / its
+    emit(prof)
+    if not all(checks.values()):
+        raise AssertionError(f"scaleup-64 failed its checks: {checks}")
+
+    kernels.reset_counts()
+    rec = scaleup.run(64, 4, "fcg", refine_mode="none", setup=setup)
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    del setup
+    ref = _scaleup_record("fcg")
+    hist, its = rec["residual_history"], rec["iterations"]
+    held, r13 = _held_to_record(its, hist, rec["max_error"], ref, "bf16")
+    # FCG's count follows the rounding of the bf16 composite, which is not
+    # self-adjoint (BASELINE.md): held to no more than the record's
+    checks = {"converged": rec["converged"],
+              "iterations": its <= ref["iterations"] + SCALEUP_COUNT_WINDOW,
+              "r0": held["r0"], "r1_r3": held["r1_r3"],
+              "max_error": held["max_error"],
+              "kernels": min(_k12(counts)) > 0,
+              "plain_calls": plain_calls(counts) == 0}
+    line = {"phase": "scaleup-64-fcg", "record": rec,
+            "record_iterations": ref["iterations"],
+            "record_residuals": ref["residual_history"][:4],
+            "record_max_error": ref["max_error"],
+            "r1_r3_over_record": r13,
+            "ms_per_iteration": 1e3 * rec["solve_seconds"] / max(its, 1),
+            "launches": counts, "checks": checks}
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"scaleup-64-fcg failed its checks: {checks}")
+
+
+def run_scaleup_suite(record):
+    """scaleup-32 and scaleup-64 in a child process:
+    ``start_suite("run_scaleup_suite")``."""
+    import shutil
+    import tempfile
+
+    def body(torch, kernels, dev, path_counts, phase_done, checked):
+        work = tempfile.mkdtemp(prefix="chip_smoke_scaleup_")
+        try:
+            run_scaleup_32(torch, kernels, dev, path_counts, work)
+            phase_done("scaleup-32")
+            run_scaleup_64(torch, kernels, dev, path_counts, checked)
+            torch.cuda.empty_cache()
+            phase_done("scaleup-64")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    run_child_phases(record, body)
+
+
+def build_main_path(torch, dev):
+    """The main path on ``dev``: Kershaw eps=0.3 16^3 N=7 on one shard, an
+    f32 Domain, the bf16 composite (r = 6, inner "amg"), u* =
+    initial_function(4, seed 0), its f and FGMRES. Returns (mesh builder,
+    mesh, shards, Domain, composite, u*, f, solve, the seconds of mesh,
+    partition and Domain, the composite's seconds)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    t0 = time.time()
+    mk = partial(kershaw_mesh, (16, 16, 16), epsilon=0.3, device=dev)
+    mesh = mk(7)
+    sd = partition_mesh(mesh, 1)
+    dom = Domain(sd, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    t0 = time.time()
+    pre = composite_dd(dom, mk, poly_reduction=6, inner="amg",
+                       ptype=torch.bfloat16, fine_mesh=mesh)
+    torch.cuda.synchronize()
+    precond_s = time.time() - t0
+    u_star = dom.initial_function(4, seed=0)
+    f = dom.manufacture_rhs(u_star)
+    solve = dom.solver(method="fgmres", max_iterations=200, precond=pre)
+    return mk, mesh, sd, dom, pre, u_star, f, solve, setup_s, precond_s
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.generator import kershaw_mesh
-    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import cuda_lib, kernels
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.preconditioners import pmultigrid
@@ -4760,23 +5276,9 @@ def main():
 
     # ---- the main path ----
     torch.cuda.reset_peak_memory_stats()
-    shape, N = (16, 16, 16), 7
-    t0 = time.time()
-    mk = partial(kershaw_mesh, shape, epsilon=0.3, device=dev)
-    mesh = mk(N)
-    sd = partition_mesh(mesh, 1)
-    dom = Domain(sd, dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    setup_s = time.time() - t0
-    t0 = time.time()
-    pre = composite_dd(dom, mk, poly_reduction=6, inner="amg",
-                       ptype=torch.bfloat16, fine_mesh=mesh)
-    torch.cuda.synchronize()
-    precond_s = time.time() - t0
-    u_star = dom.initial_function(4, seed=0)
-    f = dom.manufacture_rhs(u_star)
+    mk, mesh, sd, dom, pre, u_star, f, solve, setup_s, precond_s = \
+        build_main_path(torch, dev)
     k1_apply, k2_dssum, _ = composite_launches(torch, kernels, pre, dom, f)
-    solve = dom.solver(method="fgmres", max_iterations=200, precond=pre)
     t0 = time.time()
     res = solve(f)
     torch.cuda.synchronize()
@@ -4850,7 +5352,7 @@ def main():
     phase_done("femamg")
 
     # the 2-D phases run in a child process beside the next ones
-    suite_2d = start_2d_suite()
+    suite_2d = start_suite("run_2d_suite")
     try:
         add_counts(path_counts, run_spmd_ops(torch, kernels, dev, mesh))
         phase_done("spmd-ops")
@@ -4864,17 +5366,36 @@ def main():
         run_unstructured_phases(torch, kernels, dev, path_counts, phase_done)
         add_counts(path_counts, run_unstructured_femamg(torch, kernels, dev,
                                                         phase_done))
-        counts_2d, beside = finish_2d_suite(suite_2d)
+        counts_2d, beside = finish_suite(suite_2d, "2-D suite",
+                                         SUITE_2D_TIMEOUT)
     finally:
-        stop_2d_suite(suite_2d)
+        stop_suite(suite_2d)
     add_counts(path_counts, counts_2d)
     phase_done("2-D suite, waited for")
+    # the scale-up phases in a child of their own, alone on the card
+    torch.cuda.empty_cache()
+    suite_up = start_suite("run_scaleup_suite")
+    try:
+        counts_up, scaleup_seconds = finish_suite(suite_up, "scale-up suite",
+                                                  SCALEUP_TIMEOUT)
+    finally:
+        stop_suite(suite_up)
+    add_counts(path_counts, counts_up)
+    phase_done("scale-up suite")
     run_multiprocess(torch, kernels, dev, path_counts)
     phase_done("multiprocess")
     run_cli_phases(torch, kernels, dev, path_counts, phase_done, solve, f)
     run_phases(torch, kernels, dev, mesh, mk, dom, pre, solve, f, path_counts,
                card)
     phase_done("phases")
+    # a short solve's profile parsed both ways: the raw parse every profile
+    # line reads against torch's own. Last, so that no timed window of this
+    # process runs after torch's FunctionEvent tree was built
+    emit(profile_solve(torch, dom.solver(method="fgmres", precond=pre,
+                                         max_iterations=2), f,
+                       phase="profile-parse", families=K12_FAMILIES,
+                       cross_check=True))
+    phase_done("profile-parse")
 
     entries = []
     for (name, dt), t in sorted(timed.items()):
@@ -4945,7 +5466,7 @@ def main():
           "tensor (cuSPARSE), timed and used nowhere else", flush=True)
     emit({"phase_seconds": phase_seconds,
           "total_seconds": sum(phase_seconds.values()),
-          "beside": beside})
+          "beside": beside, "scaleup": scaleup_seconds})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,10 @@ this command with the same arguments. Exit code 0 when the solve
 converged, 1 otherwise.
 
 For scripts that drive the CLI: with PRFDD_RECORD set, each process
-writes the run's record (what ``run_simulation`` returns) and its kernel
-launches (``ops/kernels.counts`` and the launch signatures) as JSON to
-``$PRFDD_RECORD.rank<r>.json``.
+writes the run's record (what ``run_simulation`` returns), its kernel
+launches (``ops/kernels.counts`` and the launch signatures) and the
+seconds and peak memory of each stage (``runtime/driver.Outcome.stages``)
+as JSON to ``$PRFDD_RECORD.rank<r>.json``.
 """
 
 import json
@@ -23,7 +24,7 @@ import sys
 
 from .runtime.config import Config
 from .runtime.distributed import initialize_multihost, process_index
-from .runtime.driver import run_simulation
+from .runtime.driver import simulate
 
 
 def take_device(argv):
@@ -47,13 +48,15 @@ def main(argv=None):
     initialize_multihost()
     device, rest = take_device(sys.argv[1:] if argv is None else argv)
     cfg = Config.from_args(rest)
-    result = run_simulation(cfg, device=device)
+    outcome = simulate(cfg, device=device)
+    result = outcome.record
     path = os.environ.get("PRFDD_RECORD")
     if path:
         from .ops import kernels
         with open(f"{path}.rank{process_index()}.json", "w") as fh:
             json.dump({"record": result, "counts": kernels.counts(),
-                       "signatures": kernels.take_signatures()}, fh)
+                       "signatures": kernels.take_signatures(),
+                       "stages": outcome.stages}, fh)
     return 0 if result["converged"] else 1
 
 

@@ -27,7 +27,8 @@ import numpy as np
 
 from .generator import GlobalMesh
 
-__all__ = ["ShardedDomain", "StructuredInfo", "partition_mesh"]
+__all__ = ["ShardedDomain", "StructuredInfo", "check_int32_ids",
+           "partition_mesh"]
 
 
 @dataclass
@@ -111,6 +112,18 @@ class ShardedDomain:
         return self.geom.shape[1] * self.geom.shape[2]
 
 
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def check_int32_ids(largest: int, what: str) -> None:
+    """The plan stores ids up to ``largest`` (a trash slot included) as
+    int32: raise where they would wrap. Kershaw 64^3 N=7 has 449^3 =
+    90,518,849 nodes."""
+    if largest > _INT32_MAX:
+        raise ValueError(f"{what}: ids up to {largest} do not fit the "
+                         f"int32 gather plan (at most {_INT32_MAX})")
+
+
 def partition_mesh(mesh: GlobalMesh, num_shards: int,
                    structured: bool | str = "auto",
                    owned=None) -> ShardedDomain:
@@ -168,6 +181,8 @@ def partition_mesh(mesh: GlobalMesh, num_shards: int,
     NN = max(int(m.sum()) for m in presence)
     B = max(max(int(np.count_nonzero(m & interface_mask)) for m in presence),
             1)
+    check_int32_ids(NN, "local nodes of a shard")
+    check_int32_ids(BG, "interface nodes")
     degree_global = np.bincount(mesh.glo_num.ravel(), minlength=N_glob)
     offsets = tuple(int(b) for b in bounds)
 

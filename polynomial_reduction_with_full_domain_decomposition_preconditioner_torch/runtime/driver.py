@@ -18,16 +18,19 @@ from __future__ import annotations
 import os
 import sys
 import time
+from dataclasses import dataclass
 from functools import partial
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils.memory import StageLog
 from .config import Config
 from .timer import Timer
 
-__all__ = ["run_simulation"]
+__all__ = ["Outcome", "Problem", "build_problem", "run_simulation",
+           "simulate"]
 
 
 def _setup_tag(cfg: Config) -> str:
@@ -71,21 +74,48 @@ def _mesh_builder(cfg: Config, device):
     return builder
 
 
-def _build_domain(cfg: Config, device):
+def _problem_key(cfg: Config) -> str:
+    return (_setup_tag(cfg) + f"_N{cfg.poly_degree}_P{cfg.num_shards}"
+            f"_{cfg.stype}")
+
+
+@dataclass
+class Problem:
+    """A configuration's fine mesh, its Domain and the builder of its
+    meshes, with the seconds and memory of each setup stage (``stages``:
+    mesh, partition, domain). Several runs of configurations that differ
+    only past the Domain may share one: ``simulate(cfg, problem=...)``."""
+    key: str
+    dom: object
+    mesh_builder: object
+    mesh: object
+    stages: StageLog
+
+
+def build_problem(cfg: Config, device=None, mesh_builder=None) -> Problem:
+    """The mesh, the partition and the Domain of ``cfg`` on ``device``
+    (None: the card). ``mesh_builder`` (order -> GlobalMesh) stands in for
+    the configured mesh family's, e.g. to carry another package's mesh
+    across."""
     from ..mesh.partition import partition_mesh
     from ..solvers.domain import Domain
     from . import distributed
 
-    builder = _mesh_builder(cfg, device)
+    device = resolve_device(device)
+    stages = StageLog(device)
+    builder = mesh_builder or _mesh_builder(cfg, device)
     mesh = builder(cfg.poly_degree)
+    stages.mark("mesh")
     owned, comm = None, None
     if distributed.process_count() > 1:
         from .comm import ProcessComm
         owned = distributed.owned_shards(cfg.num_shards)
         comm = ProcessComm(cfg.num_shards)
     sd = partition_mesh(mesh, cfg.num_shards, owned=owned)
+    stages.mark("partition")
     dom = Domain(sd, dtype=cfg.stype_dtype(), device=device, comm=comm)
-    return dom, builder, mesh
+    stages.mark("domain")
+    return Problem(_problem_key(cfg), dom, builder, mesh, stages)
 
 
 def _chain_cache(cfg: Config):
@@ -133,16 +163,52 @@ def _build_preconditioner(cfg: Config, dom, mesh_builder, fine_mesh=None):
     return None
 
 
+@dataclass
+class Outcome:
+    """What ``simulate`` returns: the record of ``run_simulation``, the
+    problem the run solved, the seconds and memory of each stage
+    (``StageLog.as_dict``: the problem's setup stages, preconditioner,
+    rhs, solve and, with a refinement, refinement) and the f64
+    refinement's result (None without one)."""
+    record: dict
+    problem: Problem
+    stages: dict
+    refinement: object = None
+
+
 def run_simulation(cfg: Config, out=None, device=None) -> dict:
     """Run one configured solve on ``device`` (None: the card, raising
     without one) and return a structured result record; the text goes to
     ``out`` (None: standard output)."""
+    return simulate(cfg, out=out, device=device).record
+
+
+def simulate(cfg: Config, out=None, device=None, *, problem=None,
+             after_solve=None) -> Outcome:
+    """``run_simulation`` with what it leaves out of its record.
+
+    problem: a ``build_problem`` of a configuration with ``cfg``'s mesh,
+      order, shards and stype to solve on, on its device (None: built
+      here, inside the timer's ``setup.domain``).
+    after_solve: called as ``after_solve(dom, solve, f)`` after the timed
+      solves, before the refinement (e.g. to profile one more solve); its
+      time and memory are in no stage.
+    """
     out = sys.stdout if out is None else out
     # checked before any work (the JAX driver checks it after the solve)
     if cfg.output_composite and cfg.preconditioner != "composite":
         raise ValueError("--output-composite needs the composite "
                          "preconditioner")
-    device = resolve_device(device)
+    if problem is None:
+        device = resolve_device(device)
+    else:
+        if problem.key != _problem_key(cfg):
+            raise ValueError(f"the problem is {problem.key}, the "
+                             f"configuration {_problem_key(cfg)}")
+        if device is not None and resolve_device(device) != \
+                problem.dom.device:
+            raise ValueError(f"the problem is on {problem.dom.device}")
+        device = problem.dom.device
 
     def sync():
         if device.type == "cuda":
@@ -151,10 +217,15 @@ def run_simulation(cfg: Config, out=None, device=None) -> dict:
     timer = Timer(device=device)
     timer.initialize()
 
-    with timer("setup.domain"):
-        dom, mesh_builder, fine_mesh = _build_domain(cfg, device)
+    if problem is None:
+        with timer("setup.domain"):
+            problem = build_problem(cfg, device)
+    stages = problem.stages.fork()
+    dom, mesh_builder = problem.dom, problem.mesh_builder
+    fine_mesh = problem.mesh
     with timer("setup.preconditioner"):
         pre = _build_preconditioner(cfg, dom, mesh_builder, fine_mesh)
+    stages.mark("preconditioner")
 
     # run-info block
     sd = dom.sharded
@@ -177,6 +248,7 @@ def run_simulation(cfg: Config, out=None, device=None) -> dict:
     u_star_host = dom.from_device_field(u_star)
     if cfg.output is None and not dom.multiprocess:
         u_star = None
+    stages.mark("rhs")
 
     ztype = None
     if cfg.ztype is not None:
@@ -225,8 +297,12 @@ def run_simulation(cfg: Config, out=None, device=None) -> dict:
         for k, v in enumerate(ih[np.isfinite(ih)]):
             print(f"  inner iteration: {k:3d}  residual: {v:.6e}",
                   file=out)
+    stages.mark("solve")
+    if after_solve is not None:
+        after_solve(dom, solve, f)
+        stages.start()
 
-    refined = {}
+    refined, rr = {}, None
     if cfg.refine_tolerance is not None and cfg.refine_mode == "host":
         # the f64 side on the host (solvers/host_oracle.py), for sizes
         # where f64 geometry does not fit beside the f32 solver
@@ -272,6 +348,9 @@ def run_simulation(cfg: Config, out=None, device=None) -> dict:
                    "refined_max_error": err64,
                    "refined_converged": rr.converged}
 
+    if rr is not None:
+        stages.mark("refinement")
+
     print(timer.report(num_shards=cfg.num_shards if cfg.num_shards > 1
                        else None), file=out)
 
@@ -292,7 +371,7 @@ def run_simulation(cfg: Config, out=None, device=None) -> dict:
         phase_report(dom, mesh_builder, cfg=cfg,
                      iterations=min(10, max(iters, 2)), out=out)
 
-    return {
+    record = {
         "config": cfg.to_json(),
         "converged": bool(res.converged),
         "iterations": iters,
@@ -302,3 +381,4 @@ def run_simulation(cfg: Config, out=None, device=None) -> dict:
         "timers": timer.as_dict(),
         **refined,
     }
+    return Outcome(record, problem, stages.as_dict(), rr)
