@@ -212,9 +212,35 @@ Phases, each printing JSON lines (any failure exits non-zero):
            scrambled unstructured composite (f32: residuals within 2e-2
            relative and r20 / r0 within 1.05x; f64: within 1e-9). No
            phase of these four may launch K1 or K2
+  (the two pebble phases below run in a child process of their own,
+  started with the 2-D child and beside the same phases; main() waits for
+  it after the 2-D child; a "pebble suite" line gives their seconds)
+  pebble-146  the reference's pebble bed PB_146 (ROADMAP 4c): `python -m
+           <package> 7 6 1 1 --mesh pebble --shape 32,32,32 --num-pebbles
+           146 --solid-fraction 0.2 --mesh-seed 5 --ptype bfloat16
+           --num-vectors 8 --ztype bfloat16 --max-iterations 200
+           --refine-tolerance 1e-7 --refine-mode host` in a subprocess
+           (artifacts/pebble_production_pb146.json's own configuration),
+           held to that record: 26,214 elements and 13,421,568 points,
+           converged in at most its 5 + 1 iterations, r0 within 5e-3,
+           r1-r3 within 0.6-1.15x, max|u-u*| over the last relative
+           residual within 2x, refined in f64 on the host to 1e-7 in at
+           most its 2 + 1 cycles with max|u-u*| 100x smaller, its Config;
+           K1 launched, no plain twin called; seconds and card and host
+           memory by stage, K1 / K2 / SpMV launches an outer iteration.
+           Where r1-r3 or the count miss, the same setup with an f32
+           composite is run and printed as a witness
+  pebble-1568  PB_1568 (93,991 elements, 48,123,392 points) through
+           studies/pebble_production.py on the record's configuration:
+           (a) K1 (bf16, f32) on its (E * 8, 8, 8) element view, past the
+           65,535-block grid in z, against its twin, timed warm beside
+           its byte bound; (b) the timed solve and the host refinement,
+           held as pebble-146 is to its own record; (c) one more solve
+           under the profiler: busy share, top kernels, K1 / K2 / SpMV
+           launches an outer iteration
   (the scale-up phases below run in a child process of their own once
-  the 2-D child has ended, alone on the card: main() waits for them; a
-  "scale-up suite" line gives their seconds)
+  the 2-D and pebble children have ended, alone on the card: main()
+  waits for them; a "scale-up suite" line gives their seconds)
   scaleup-32  the reference's headline mesh on the way (ROADMAP 4c):
            `python -m <package> 7 6 1 1 --mesh kershaw --shape 32,32,32
            --epsilon 0.3 --ptype bfloat16` in a subprocess (16,777,216
@@ -304,7 +330,8 @@ the driven paths, error, warm and cold time, plain time, bound and the
 share of the bound it reaches: this run's numbers only), one
 {"previous_design": ...} line (this run's warm times beside the constant
 table of the previous designs' times), the seconds each phase took
-(the 2-D suite's under "beside", the scale-up suite's under "scaleup")
+(the 2-D suite's under "beside", the pebble suite's under "pebble", the
+scale-up suite's under "scaleup")
 and, last, the {"ok": true, "device":
 {...}}
 line.
@@ -5172,6 +5199,281 @@ def run_scaleup_suite(record):
     run_child_phases(record, body)
 
 
+# ---------------------------------------------------------------------------
+# The reference's pebble-bed family (ROADMAP §4c): PB_146 (13,421,568
+# points) through the CLI a user types and PB_1568 (48,123,392 points)
+# through studies/pebble_production.py, the port of the JAX package's
+# artifacts/run_pebble_production.py, each refined in f64 on the host as
+# that script refines. Both run in a child process that main() starts
+# beside the 2-D child.
+
+PEBBLE_146 = ["7", "6", "1", "1", "--mesh", "pebble", "--shape", "32,32,32",
+              "--num-pebbles", "146", "--solid-fraction", "0.2",
+              "--mesh-seed", "5", "--ptype", "bfloat16", "--num-vectors", "8",
+              "--ztype", "bfloat16", "--max-iterations", "200",
+              "--refine-tolerance", "1e-7", "--refine-mode", "host"]
+# (elements, points) of each bed at N=7, as both packages carve it on the
+# CPU
+PEBBLE_SIZES = {146: (26214, 13421568), 1568: (93991, 48123392)}
+PEBBLE_REFINE_TOL = 1e-7      # the reference's criterion, domain.hpp:118
+PEBBLE_CYCLE_WINDOW = 1
+# r1-r3 over a TPU record's: no more than SCALEUP_R13_RTOL["bf16"] above
+# it, and down to the card's f32 composite's 0.69 (PB_146) with room: the
+# card's bf16 composite rounds at fewer places than the TPU's unstructured
+# one (its element contractions are XLA's there, K1 here) and converges
+# faster (PERF.md §6, the pebble beds)
+PEBBLE_R13_WINDOW = (0.6, 1.0 + SCALEUP_R13_RTOL["bf16"])
+PEBBLE_REFINED_GAIN = 100.0    # max|u - u*| unrefined over refined, at least
+PEBBLE_TIMEOUT = 900
+
+
+def _k12_spmv(counts):
+    """(K1, K2, SpMV) launches in a counts() snapshot."""
+    return _k12(counts) + (sum(counts.get("csr_spmv", {}).values()),)
+
+
+def _pebble_checks(rec, ref, elements, points, counts):
+    """{check: passed} of a pebble run against the JAX package's record,
+    and r1-r3 over the record's. r1-r3 are held within PEBBLE_R13_WINDOW
+    of the record's and max|u - u*| over the run's last relative residual
+    within a factor SCALEUP_ERR_RATIO of the record's (PERF.md §6, the
+    pebble beds: the card's bf16 composite converges faster than the
+    TPU's)."""
+    k = int(ref["family"].split("_")[1])
+    hist, r = rec["residual_history"], ref["residual_history"]
+    r13 = [hist[i] / r[i] for i in (1, 2, 3)] if len(hist) > 3 else []
+    lo, hi = PEBBLE_R13_WINDOW
+    # max|u - u*| per unit of the relative residual each run stopped at
+    err_ratio = ((rec["max_error"] * hist[0] / hist[-1])
+                 / (ref["max_error"] * r[0] / r[-1]))
+    checks = {
+        "elements": elements == PEBBLE_SIZES[k][0],
+        "points": points == PEBBLE_SIZES[k][1],
+        "converged": rec["converged"],
+        "iterations": rec["iterations"] <= ref["iterations"] + SCALEUP_COUNT_WINDOW,
+        "r0": abs(hist[0] / r[0] - 1.0) <= SCALEUP_R0_RTOL,
+        "r1_r3": bool(r13) and all(lo <= x <= hi for x in r13),
+        "max_error": 1.0 / SCALEUP_ERR_RATIO <= err_ratio <= SCALEUP_ERR_RATIO,
+        "refined": (bool(rec.get("refined_converged"))
+                    and rec["refined_rel_residual"] <= PEBBLE_REFINE_TOL
+                    and rec["refined_cycles"]
+                    <= ref["refined_cycles"] + PEBBLE_CYCLE_WINDOW),
+        "refined_gain": (rec.get("refined_max_error") is not None
+                         and rec["refined_max_error"] * PEBBLE_REFINED_GAIN
+                         <= rec["max_error"]),
+        "kernels": _k12_spmv(counts)[0] > 0,
+        "plain_calls": plain_calls(counts) == 0}
+    return checks, r13, err_ratio
+
+
+def _pebble_line(phase, rec, ref, checks, r13, err_ratio, counts, stages,
+                 outer):
+    """The phase's line: the run beside the record, seconds and memory by
+    stage, launches per outer iteration (``outer``: the outer iterations
+    the launches were counted over)."""
+    k1, k2, spmv = _k12_spmv(counts)
+    return {"phase": phase, "family": ref["family"],
+            "iterations": rec["iterations"],
+            "record_iterations": ref["iterations"],
+            "residuals": rec["residual_history"],
+            "record_residuals": ref["residual_history"],
+            "r1_r3_over_record": r13, "r1_r3_window": PEBBLE_R13_WINDOW,
+            "max_error": rec["max_error"],
+            "record_max_error": ref["max_error"],
+            "max_error_over_record": rec["max_error"] / ref["max_error"],
+            "max_error_per_residual_over_record": err_ratio,
+            "refined": [rec.get("refined_rel_residual"),
+                        rec.get("refined_cycles"),
+                        rec.get("refined_max_error")],
+            "record_refined": [ref["refined_rel_residual"],
+                               ref["refined_cycles"],
+                               ref["refined_max_error"]],
+            "solve_seconds": rec["solve_seconds"],
+            "ms_per_iteration": 1e3 * rec["solve_seconds"]
+            / max(rec["iterations"], 1),
+            "timers": {k: v["total_s"] for k, v in rec["timers"].items()},
+            "stages": stages, "launches": counts,
+            "launches_counted_over_outer_iterations": outer,
+            "k1_per_iteration": k1 / max(outer, 1),
+            "k2_per_iteration": k2 / max(outer, 1),
+            "spmv_per_iteration": spmv / max(outer, 1), "checks": checks}
+
+
+def _pebble_witness(k, cfg, setup):
+    """The same run with an f32 composite and Z basis on the same setup,
+    no refinement: how far bf16 rounding moves the residuals (printed
+    where a window missed)."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import pebble_production as pp
+    rec = pp.run(k, config=cfg.replace(ptype="float32", ztype=None,
+                                       refine_tolerance=None,
+                                       refine_mode="device"), setup=setup)
+    ref = _pebble_record(k)
+    emit({"phase": f"pebble-{k}-f32-witness", "iterations": rec["iterations"],
+          "residuals": rec["residual_history"],
+          "record_residuals": ref["residual_history"],
+          "r_over_record": [a / b for a, b in zip(rec["residual_history"],
+                                                  ref["residual_history"])],
+          "max_error": rec["max_error"], "solve_seconds": rec["solve_seconds"]})
+
+
+def _pebble_record(k):
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import pebble_production as pp
+    with open(pp.record_path(k)) as fh:
+        return json.load(fh)
+
+
+def run_pebble_146(torch, kernels, dev, path_counts, work):
+    """artifacts/pebble_production_pb146.json's configuration (its own:
+    FGMRES(8), where the script now sets 6) through the CLI in a
+    subprocess, refined in f64 on the host, its record read through
+    PRFDD_RECORD. The launches are counted over every outer iteration of
+    the run: the warm-up and 3 timed solves and the refinement's."""
+    import os
+    import re
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import pebble_production as pp
+    ref = _pebble_record(146)
+    (log, rec, seconds), = run_cli_processes(
+        kernels, PEBBLE_146, 1, os.path.join(work, "pebble146"), path_counts)
+    r = rec["record"]
+    elements = int(re.search(r"elements:\s+(\d+)", log).group(1))
+    inner = re.search(r"inner_iterations=(\d+)", log)
+    # the record's configuration but for its checkpoint directory
+    want = pp.record_config(146)
+    config_diff = sorted(k for k, v in json.loads(want.to_json()).items()
+                         if json.loads(r["config"]).get(k) != v)
+    checks, r13, err_ratio = _pebble_checks(r, ref, elements, elements * 512,
+                                            rec["counts"])
+    checks["config"] = not config_diff
+    outer = 4 * r["iterations"] + (int(inner.group(1)) if inner else 0)
+    line = _pebble_line("pebble-146", r, ref, checks, r13, err_ratio,
+                        rec["counts"], rec["stages"], outer)
+    line.update(argv=" ".join(PEBBLE_146), seconds=seconds,
+                elements=elements, points=elements * 512,
+                config_diff=config_diff, timer_report=_timer_lines(log))
+    emit(line)
+    if not all(checks.values()):
+        if not (checks["r1_r3"] and checks["iterations"]):
+            setup = pp.build_setup(146, device=dev)
+            _pebble_witness(146, want, setup)
+        raise AssertionError(f"pebble-146 failed its checks: {checks}")
+
+
+def check_pebble_kernels(torch, kernels, dev, checked):
+    """K1 in bf16 and f32 on PB_1568's element view (E * 8, 8, 8), E =
+    93,991, against its plain twin as the kernels phase holds it, timed
+    warm beside its byte bound; the signatures join ``checked``."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n = 8
+    shape = (PEBBLE_SIZES[1568][0] * n, n, n)
+    rand = lambda: torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float64)
+    U64, G64 = rand(), [rand() for _ in range(6)]
+    for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        U, G = U64.to(dt), [g.to(dt) for g in G64]
+        line = k1_line(torch, kernels, U, G, n, "pebble-kernels")
+        line["ms"] = cuda_ms(lambda: kernels.stiffness_lattice_3d(U, G, n),
+                             10, warmup=1)
+        line["bound_ms"] = k1_bytes(U) / HBM_BYTES_PER_S * 1e3
+        line["share_of_bound"] = line["bound_ms"] / line["ms"]
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"stiffness_lattice_3d disagrees on PB_1568's "
+                                 f"element view: {line}")
+        checked.add(("stiffness_lattice_3d", name, shape, n))
+        del U, G
+    del U64, G64
+    kernels.take_signatures()
+
+
+def run_pebble_1568(torch, kernels, dev, path_counts, checked):
+    """(a) K1 on PB_1568's element view against its twin before any solve
+    state; (b) studies/pebble_production.run on the record's own
+    configuration (FGMRES(6), bf16 Z basis, bf16 composite, 4 inner
+    steps), refined in f64 on the host to 1e-7; (c) one more of its solves
+    under the profiler, its K1, K2 and SpMV launches counted."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import pebble_production as pp
+    check_pebble_kernels(torch, kernels, dev, checked)
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    cfg = pp.record_config(1568)
+    setup = pp.build_setup(1568, device=dev)
+    prof = {}
+
+    def profiled(dom, solve, f):
+        before = _k12_spmv(kernels.counts())
+        prof.update(profile_solve(torch, solve, f, phase="pebble-1568-profile",
+                                  top_n=14, families=K12_FAMILIES))
+        prof["launches_k1_k2_spmv"] = [a - b for a, b in
+                                       zip(_k12_spmv(kernels.counts()), before)]
+
+    rec = pp.run(1568, config=cfg, setup=setup, after_solve=profiled)
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    ref = _pebble_record(1568)
+    checks, r13, err_ratio = _pebble_checks(rec, ref, rec["elements"],
+                                            rec["points"], counts)
+    its = rec["iterations"]
+    line = _pebble_line("pebble-1568", rec, ref, checks, r13, err_ratio,
+                        counts,
+                        rec["memory"] | {"seconds": rec["stage_seconds"]},
+                        its)
+    # the profiled solve's launches: one solve, its outer iterations
+    k1, k2, spmv = prof.get("launches_k1_k2_spmv", (0, 0, 0))
+    line.update(elements=rec["elements"], points=rec["points"],
+                wall_seconds=rec["wall_seconds"],
+                composite_setup_seconds=rec["composite_setup_seconds"],
+                refined_inner_iterations=rec.get("refined_inner_iterations"),
+                refined_history=rec.get("refined_history"),
+                k1_per_iteration=k1 / max(its, 1),
+                k2_per_iteration=k2 / max(its, 1),
+                spmv_per_iteration=spmv / max(its, 1),
+                launches_counted_over_outer_iterations=(
+                    "the profiled solve's"))
+    emit(line)
+    if isinstance(prof.get("device_busy_ms"), float):
+        prof["busy_share_of_unprofiled_solve"] = (
+            prof["device_busy_ms"] / (1e3 * rec["solve_seconds"]))
+        prof["activities_per_iteration"] = prof["device_activities"] / its
+    emit(prof)
+    if not all(checks.values()):
+        if not (checks["r1_r3"] and checks["iterations"]):
+            _pebble_witness(1568, cfg, setup)
+        raise AssertionError(f"pebble-1568 failed its checks: {checks}")
+
+
+def run_pebble_suite(record):
+    """pebble-146 and pebble-1568 in a child process:
+    ``start_suite("run_pebble_suite")``."""
+    import shutil
+    import tempfile
+
+    def body(torch, kernels, dev, path_counts, phase_done, checked):
+        work = tempfile.mkdtemp(prefix="chip_smoke_pebble_")
+        failed = []
+        try:
+            # both phases run, so that a miss in the first leaves the
+            # second's readings in the output too
+            for name, phase in (
+                    ("pebble-146", lambda: run_pebble_146(
+                        torch, kernels, dev, path_counts, work)),
+                    ("pebble-1568", lambda: run_pebble_1568(
+                        torch, kernels, dev, path_counts, checked))):
+                try:
+                    phase()
+                except AssertionError as e:
+                    failed.append(str(e))
+                torch.cuda.empty_cache()
+                phase_done(name)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        if failed:
+            raise AssertionError(f"pebble suite: {failed}")
+
+    run_child_phases(record, body)
+
+
 def build_main_path(torch, dev):
     """The main path on ``dev``: Kershaw eps=0.3 16^3 N=7 on one shard, an
     f32 Domain, the bf16 composite (r = 6, inner "amg"), u* =
@@ -5351,8 +5653,10 @@ def main():
     add_counts(path_counts, femamg_counts)
     phase_done("femamg")
 
-    # the 2-D phases run in a child process beside the next ones
+    # the 2-D phases and the pebble beds run in child processes beside the
+    # next ones
     suite_2d = start_suite("run_2d_suite")
+    suite_peb = start_suite("run_pebble_suite")
     try:
         add_counts(path_counts, run_spmd_ops(torch, kernels, dev, mesh))
         phase_done("spmd-ops")
@@ -5368,10 +5672,15 @@ def main():
                                                         phase_done))
         counts_2d, beside = finish_suite(suite_2d, "2-D suite",
                                          SUITE_2D_TIMEOUT)
+        add_counts(path_counts, counts_2d)
+        phase_done("2-D suite, waited for")
+        counts_peb, pebble_seconds = finish_suite(suite_peb, "pebble suite",
+                                                  PEBBLE_TIMEOUT)
     finally:
         stop_suite(suite_2d)
-    add_counts(path_counts, counts_2d)
-    phase_done("2-D suite, waited for")
+        stop_suite(suite_peb)
+    add_counts(path_counts, counts_peb)
+    phase_done("pebble suite, waited for")
     # the scale-up phases in a child of their own, alone on the card
     torch.cuda.empty_cache()
     suite_up = start_suite("run_scaleup_suite")
@@ -5466,7 +5775,8 @@ def main():
           "tensor (cuSPARSE), timed and used nowhere else", flush=True)
     emit({"phase_seconds": phase_seconds,
           "total_seconds": sum(phase_seconds.values()),
-          "beside": beside, "scaleup": scaleup_seconds})
+          "beside": beside, "pebble": pebble_seconds,
+          "scaleup": scaleup_seconds})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

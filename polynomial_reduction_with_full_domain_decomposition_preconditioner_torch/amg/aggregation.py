@@ -204,6 +204,34 @@ def filter_small_entries(A: sp.csr_matrix, tol: float) -> sp.csr_matrix:
     return Af
 
 
+# A level at least this full, and at least this large, forms its Galerkin
+# product densely (below: scipy's sparse product)
+_DENSE_FILL = 0.01
+_DENSE_MIN_ROWS = 1000
+
+
+def _galerkin(P: sp.csr_matrix, A: sp.csr_matrix) -> sp.csr_matrix:
+    """P^T A P in CSR with sorted indices and no stored zeros, as
+    ``(P.T @ A @ P)`` gives it. Smoothed aggregation without filtering
+    fills its coarse levels in (a pebble bed's vertex chain is dense from
+    its third level on), and scipy's sparse product costs O(n^3) there
+    with a large constant: 704 s of one H100 machine's host CPU for
+    PB_1568's chain, 20.8 s with the dense products. A level
+    with at least ``_DENSE_FILL`` of its entries stored and
+    ``_DENSE_MIN_ROWS`` rows forms the product as two dense BLAS products
+    and keeps its nonzero entries: the same pattern, the values summed in
+    another order (within round-off of the sparse product's)."""
+    n = A.shape[0]
+    if n < _DENSE_MIN_ROWS or A.nnz < _DENSE_FILL * n * n:
+        Ac = (P.T @ A @ P).tocsr()
+        Ac.sum_duplicates()
+        return Ac
+    Pd = P.toarray()
+    Ac = sp.csr_matrix(Pd.T @ (A.toarray() @ Pd))
+    Ac.sort_indices()
+    return Ac
+
+
 def aggregation_chain(A0: sp.csr_matrix, vmask: np.ndarray,
                       max_coarse: int = 600, theta: float = 0.08,
                       omega: float = 2.0 / 3.0, max_levels: int = 12,
@@ -252,8 +280,7 @@ def aggregation_chain(A0: sp.csr_matrix, vmask: np.ndarray,
             invd = sp.diags(np.where(d != 0, 1.0 / d, 0.0))
         # Jacobi-smoothed prolongation: P = (I - omega/lmax D^-1 A) P0
         P = (P0 - (omega / lmax) * (invd @ (A @ P0))).tocsr()
-        Ac = (P.T @ A @ P).tocsr()
-        Ac.sum_duplicates()
+        Ac = _galerkin(P, A)
         if Ac.nnz > 45 * Ac.shape[0]:
             # filter only when stencils actually grow, with a per-level
             # DECAYING tolerance — a fixed tolerance strangles the

@@ -145,6 +145,7 @@ class StiffnessPlan(NamedTuple):
 
 
 _SM_COUNT = 132                      # H100
+_GRID_YZ_MAX = 65535                 # a launch's blocks in y and in z
 _STIFFNESS_MAX_THREADS = 256         # csrc/stiffness.cu kMaxThreads
 _STIFFNESS_BLOCKS_PER_SM = 2         # csrc/stiffness.cu kMinBlocks
 _STIFFNESS_MAX_EZ = 8
@@ -205,9 +206,34 @@ def _stiffness_plan(shape, n: int, itemsize: int) -> StiffnessPlan:
            and blocks(ey, 2 * ez) >= _SM_COUNT):
         ez *= 2
     plan = _stiffness_launch(shape, n, itemsize, ey, ez)
-    if plan.grid[1] > 65535 or plan.grid[2] > 65535:
+    if plan.grid[1] > _GRID_YZ_MAX or plan.grid[2] > _GRID_YZ_MAX:
         raise ValueError(f"lattice {tuple(shape)} exceeds the launch grid")
     return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _stiffness_chunks(shape, n: int, itemsize: int):
+    """K1's launches on an element-aligned (Mz, My, Mx) lattice (a
+    tuple): ((first element in z, elements in z, plan), ...), one launch
+    unless the plan's grid would pass 65535 blocks in z (an element view
+    (E * n, n, n) of more than 65,535 elements that the plan's ez does not
+    fold under the limit); then near-equal runs of whole elements in z,
+    each with its own plan. The apply is element-local, so the runs are
+    independent."""
+    elems = shape[0] // n
+    try:
+        return ((0, elems, _stiffness_plan(shape, n, itemsize)),)
+    except ValueError:
+        if elems <= _GRID_YZ_MAX:
+            raise
+    k = -(-elems // _GRID_YZ_MAX)
+    out, z0 = [], 0
+    for c in range(k):
+        ez = elems // k + (c < elems % k)
+        out.append((z0, ez, _stiffness_plan((ez * n,) + tuple(shape[1:]), n,
+                                            itemsize)))
+        z0 += ez
+    return tuple(out)
 
 
 def stiffness_lattice_3d(U, G, n: int):
@@ -236,18 +262,21 @@ def stiffness_lattice_3d(U, G, n: int):
     out = torch.empty_like(U)
     if U.numel() == 0:
         return out
-    plan = _stiffness_plan(tuple(U.shape), n, U.element_size())
+    isz = U.element_size()
     # the host's f64 GLL table; the launch casts it to the accumulation
     # type and hands it to the kernel by value
     D = diff_matrix(n)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
-        err = cuda_lib.load().prfdd_stiffness_3d(
-            _CODE[U.dtype], n, U.data_ptr(), *(g.data_ptr() for g in G),
-            D.ctypes.data, out.data_ptr(), mz, my, mx,
-            plan.ex, plan.ey, plan.ez, stream)
-    _raise_on(err, "stiffness_lattice_3d")
-    stiffness_lattice_3d.launches.add(U.dtype, (tuple(U.shape), n))
+        for z0, ez, plan in _stiffness_chunks(tuple(U.shape), n, isz):
+            off = z0 * n * my * mx * isz
+            err = cuda_lib.load().prfdd_stiffness_3d(
+                _CODE[U.dtype], n, U.data_ptr() + off,
+                *(g.data_ptr() + off for g in G), D.ctypes.data,
+                out.data_ptr() + off, ez * n, my, mx, plan.ex, plan.ey,
+                plan.ez, stream)
+            _raise_on(err, "stiffness_lattice_3d")
+            stiffness_lattice_3d.launches.add(U.dtype, (tuple(U.shape), n))
     return out
 
 
@@ -551,7 +580,7 @@ def _face_sum_plan_of(shape, n, itemsize, mw_itemsize, ptrs, mw_ptrs):
     while by > 1 and blocks(by) < _SM_COUNT:
         by //= 2
     plan = _face_sum_launch(shape, vec, by)
-    if plan.grid[1] > 65535 or plan.grid[2] > 65535:
+    if plan.grid[1] > _GRID_YZ_MAX or plan.grid[2] > _GRID_YZ_MAX:
         raise ValueError(f"lattice {tuple(shape)} exceeds the launch grid")
     return plan
 

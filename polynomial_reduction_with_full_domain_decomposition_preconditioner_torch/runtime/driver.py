@@ -168,12 +168,14 @@ class Outcome:
     """What ``simulate`` returns: the record of ``run_simulation``, the
     problem the run solved, the seconds and memory of each stage
     (``StageLog.as_dict``: the problem's setup stages, preconditioner,
-    rhs, solve and, with a refinement, refinement) and the f64
-    refinement's result (None without one)."""
+    rhs, solve and, with a refinement, refinement), the f64
+    refinement's result (None without one) and the preconditioner (None
+    without one)."""
     record: dict
     problem: Problem
     stages: dict
     refinement: object = None
+    precond: object = None
 
 
 def run_simulation(cfg: Config, out=None, device=None) -> dict:
@@ -381,4 +383,4 @@ def simulate(cfg: Config, out=None, device=None, *, problem=None,
         "timers": timer.as_dict(),
         **refined,
     }
-    return Outcome(record, problem, stages.as_dict(), rr)
+    return Outcome(record, problem, stages.as_dict(), rr, pre)

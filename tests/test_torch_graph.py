@@ -153,6 +153,30 @@ def test_aggregation_chain_matches_reference():
     assert np.array_equal(jf, tf)
 
 
+def test_aggregation_chain_dense_levels_match_reference():
+    # Kershaw 20^3 at order 1: the second level (1,537 rows, 5% full) forms
+    # its Galerkin product densely (amg/aggregation._galerkin), the JAX
+    # package's sparsely: the same pattern, the values within round-off
+    jm = jg.kershaw_mesh((20, 20, 20), 1, epsilon=0.3)
+    tm = tg.kershaw_mesh((20, 20, 20), 1, epsilon=0.3, device="cpu")
+    jA, jmask = jagg.q1_vertex_matrix(jm)
+    tA, tmask = tagg.q1_vertex_matrix(tm)
+    ji = jagg.aggregation_chain(jA, jmask, max_coarse=10)
+    ti = tagg.aggregation_chain(tA, tmask, max_coarse=10)
+    assert any(m.shape[0] >= tagg._DENSE_MIN_ROWS
+               and m.nnz >= tagg._DENSE_FILL * m.shape[0] ** 2
+               for m in ti["mats"][:-1])
+    assert len(ti["mats"]) == len(ji["mats"])
+    for a, b in zip(ji["mats"], ti["mats"]):
+        _same_csr(a, b)
+    for a, b in zip(ji["prolongs"], ti["prolongs"]):
+        _same_csr(a, b)
+    np.testing.assert_allclose(ti["lmaxs"], ji["lmaxs"], rtol=1e-12)
+    np.testing.assert_allclose(ti["coarse_inv"], ji["coarse_inv"],
+                               rtol=1e-12, atol=1e-12 * np.abs(
+                                   ji["coarse_inv"]).max())
+
+
 def test_pack_level_chain_cycles_per_shard():
     # the packed chain (block-diagonal CSR over 3 shards) runs one V-cycle
     # per shard's right-hand side, each equal to a one-shard pack's

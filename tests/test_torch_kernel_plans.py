@@ -323,3 +323,32 @@ def test_split_plan_on_random_element_counts(n, ez, ey, ex, dtype, off):
     isz = ITEMSIZE[dtype]
     off -= off % (2 * isz)
     _check_split((ez * n, ey * n, ex * n), n, isz, (1 << 20, (1 << 21) + off))
+
+
+# element views (E * 8, 8, 8) at N=7: the pebble beds PB_146 (26,214
+# elements) and PB_1568 (93,991), and counts around the grid's limit
+@pytest.mark.parametrize("elems", [26214, 93991, 65535, 65536, 131071,
+                                   131072 * 8 + 1])
+@pytest.mark.parametrize("isz", [2, 4, 8])
+def test_stiffness_chunks_cover_long_element_views(elems, isz):
+    n = 8
+    shape = (elems * n, n, n)
+    chunks = kernels._stiffness_chunks(shape, n, isz)
+    # consecutive runs of whole elements that cover the view once, each a
+    # launch the card takes
+    z = 0
+    for z0, ez, plan in chunks:
+        assert z0 == z and ez >= 1
+        assert plan == _check_stiffness((ez * n, n, n), n, isz)
+        z += ez
+    assert z == elems
+    try:
+        one = kernels._stiffness_plan(shape, n, isz)
+    except ValueError:
+        # a single launch would pass 65535 blocks in z: PB_1568's view
+        # of 93,991 elements (odd, so ez stays 1) raised here before
+        assert elems > 65535 and len(chunks) == -(-elems // 65535)
+    else:
+        assert chunks == ((0, elems, one),)
+    if elems == 93991:
+        assert len(chunks) == 2

@@ -19,7 +19,10 @@ from unstructured_twins import one_torch_thread  # noqa: F401 (autouse)
 
 @pytest.mark.parametrize("shape,num,seed,frac", [
     ((6, 6, 6), 4, 2, 0.25), ((16, 16, 16), 24, 5, 0.3),
-    ((8, 8, 8), 40, 1, 0.25)])
+    ((8, 8, 8), 40, 1, 0.25),
+    # the reference's families PB_146 and PB_1568
+    # (artifacts/run_pebble_production.py)
+    ((32, 32, 32), 146, 5, 0.2), ((48, 48, 48), 1568, 5, 0.15)])
 def test_pack_pebbles_matches_reference(shape, num, seed, frac):
     jc, jr = jpb.pack_pebbles(shape, num, seed, frac)
     tc, tr = tpb.pack_pebbles(shape, num, seed, frac)
