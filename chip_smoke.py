@@ -212,9 +212,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
            scrambled unstructured composite (f32: residuals within 2e-2
            relative and r20 / r0 within 1.05x; f64: within 1e-9). No
            phase of these four may launch K1 or K2
-  (the two pebble phases below run in a child process of their own,
-  started with the 2-D child and beside the same phases; main() waits for
-  it after the 2-D child; a "pebble suite" line gives their seconds)
+  (the pebble phases and the three after them run in a child process of
+  their own, started with the 2-D child and beside the same phases;
+  main() waits for it after the 2-D child; a "pebble suite" line gives
+  their seconds)
   pebble-146  the reference's pebble bed PB_146 (ROADMAP 4c): `python -m
            <package> 7 6 1 1 --mesh pebble --shape 32,32,32 --num-pebbles
            146 --solid-fraction 0.2 --mesh-seed 5 --ptype bfloat16
@@ -238,6 +239,23 @@ Phases, each printing JSON lines (any failure exits non-zero):
            held as pebble-146 is to its own record; (c) one more solve
            under the profiler: busy share, top kernels, K1 / K2 / SpMV
            launches an outer iteration
+  ablation  studies/strong_scaling_ablate.py in f64 (six knob sets of the
+           composite at P = 1, 2, 4, 8 on Kershaw (4, 4, 16) N=3): every
+           count within +-1 of artifacts/strong_scaling_ablate.json, and
+           the record's one refusal (v2 at P = 8: rings deeper than a
+           slab) raised by the composite build with the record's text
+  kershaw-sweep  runtime/sweep.kershaw_sweep (8^3 N=7, epsilon 1.0 and
+           0.3), each point held to artifacts/kershaw_sweep/: the count
+           +- 1, r0 within 1e-5, r1-r3 within 5%, max|u-u*| within 2x,
+           the Config fields the record holds
+  femamg-i8  fem-amg with 8 inner steps (artifacts/run_femamg_i8.py's
+           Config) through `python -m <package> 7 6 1 1 --mesh kershaw
+           --shape 16,16,16 --epsilon 0.3 --inner fem-amg
+           --inner-iterations 8 --max-iterations 200` in a subprocess
+           beside ablation and kershaw-sweep (neither times anything),
+           held to artifacts/femamg_production_16cubed_i8.json as
+           kershaw-sweep's points are (13 +- 1 iterations); the SpMV
+           launched
   (the scale-up phases below run in a child process of their own once
   the 2-D and pebble children have ended, alone on the card: main()
   waits for them; a "scale-up suite" line gives their seconds)
@@ -258,6 +276,16 @@ Phases, each printing JSON lines (any failure exits non-zero):
            5e-3, r1-r3 within 15% and max|u-u*| within 2x, and "fgmres"
            (the Z basis in f32: no bf16 rounding anywhere) with r1-r3
            within 5% and at most its 23 + 1 iterations besides
+  phase-p8-32  the region profile of artifacts/phase_p8_32cubed.py
+           (studies/phase_profiles.py "p8") on scaleup-32's 32^3 mesh over
+           P = 8 shards, bf16 composite: its 15 chains' scalars and
+           times finite, the tree
+           kinds' time above 0, K1 per composite apply and K2 per
+           composite dssum equal to the groups G; then
+           runtime/phases.phase_report on the same composite, its total
+           per iteration within 0.67-1.5x of 20 FGMRES(20) steps timed
+           just before and just after it; the 17 regions as shares of
+           their sum beside the record's (printed, not held)
   scaleup-64  Kershaw 64^3 N=7 (134,217,728 points) through
            studies/scaleup.py: (a) K1 (bf16, f32, f64) and K2 (bf16, f32;
            the bf16 mask, and mask and weight) on the 512^3 lattice
@@ -269,7 +297,12 @@ Phases, each printing JSON lines (any failure exits non-zero):
            within 2x, refined in f64 on the card to 1e-7; seconds, card
            and host memory by stage; (c) one more of its solves under the
            profiler: busy share, top kernels, K1 / K2 launches an outer
-           iteration; (d) run(64, 4, "fcg", refine_mode="none") on (b)'s
+           iteration; then phase-64, the region profile of
+           artifacts/phase_64cubed.py ("cube") on (b)'s Domain,
+           composite and right-hand side: its 12 chains finite, the
+           operator region at least 0.9x K1 f32's warm time of (a) and
+           the dssum region 0.9x K2 f32's (mask); (d) run(64, 4, "fcg",
+           refine_mode="none") on (b)'s
            mesh and Domain against artifacts/scaleup_64cubed.json: at most
            its 17 + 1 iterations, r0, r1-r3 and max|u-u*| as in (b)
   cli      the main path as a user runs it (ROADMAP item 15a): (a) `python
@@ -313,6 +346,13 @@ Phases, each printing JSON lines (any failure exits non-zero):
            processes (gloo) over P = 4 with --output-composite: their four
            files bitwise (bf16 as uint16) the in-process P = 4 dump's.
            (d) and (e) run beside (b) and (c), (a) alone after them.
+  phase-unstructured  the region profile of artifacts/phase_unstructured.py
+           ("unstructured": the scrambled 16^3 mesh, f32 composite) and
+           phase_report on the same composite (its tree_levels row),
+           alone after phases: every chain finite, the report's total
+           per iteration within 0.67-1.5x of the f32 FGMRES(20) solve
+           timed just before and just after them; the TPU record printed
+           beside (not held)
 The kernels phase also holds K1 on the spmd phase's P = 5 stacks at every
 level, (5, 32, 128, 128) n = 8 to (5, 8, 32, 32) n = 2, and K2 on the
 P = 5 and P = 4 stacks of the same levels, against their twins (K2 also
@@ -4281,7 +4321,7 @@ def yardstick_hook(torch, kernels, solve, f):
         out["iterations"].append(int(res.iterations))
         return start.elapsed_time(stop) / 1e3
 
-    def hook(dom, cli_solve, cli_f):
+    def hook(dom, cli_solve, cli_f, _precond):
         before = kernels.counts()
         for _ in range(CLI_YARD_ROUNDS):
             out["cli"].append(timed(cli_solve, cli_f))
@@ -4686,7 +4726,6 @@ def run_phases(torch, kernels, dev, mesh, mk, dom, pre, solve, f,
     4 dump of the same configuration in this process. (d) and (e) run
     beside (b) and (c); (a) runs alone after them."""
     import io
-    import math
     import os
     import tempfile
     import numpy as np
@@ -4699,13 +4738,7 @@ def run_phases(torch, kernels, dev, mesh, mk, dom, pre, solve, f,
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.__main__ import take_device
     cfg = Config.from_args(take_device(CLI_MAIN)[1])
-    meshes = {mesh.poly_degree: mesh}
-
-    def mkc(o):
-        # the phase report's composites rebuild no mesh
-        if o not in meshes:
-            meshes[o] = mk(o)
-        return meshes[o]
+    mkc = _memo_builder(mk, mesh)
 
     t_phase = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_phases_") as work:
@@ -4794,41 +4827,29 @@ def run_phases(torch, kernels, dev, mesh, mk, dom, pre, solve, f,
     # solve timed just before and just after it: the host's speed drifts
     # within a run (PERF.md §7), so the yardstick is the mean of the two
     # readings around the report, not the solve phase's of long before
-    before_s, res, counts_s = best_solve_seconds(torch, kernels, solve, f)
-    add_counts(path_counts, counts_s)
-    kernels.reset_counts()
     buf = io.StringIO()
-    t0 = time.time()
-    rep = phase_report(dom, mkc, cfg=cfg, iterations=10, out=buf)
-    torch.cuda.synchronize()
-    seconds_a = time.time() - t0
-    counts_a = kernels.counts()
-    add_counts(path_counts, counts_a)
-    after_s, res_after, counts_s = best_solve_seconds(torch, kernels, solve,
-                                                      f)
-    add_counts(path_counts, counts_s)
+    around = _report_around(
+        torch, kernels, dom, solve, f,
+        lambda: phase_report(dom, mkc, cfg=cfg, iterations=10, out=buf))
+    add_counts(path_counts, around["launches"])
+    add_counts(path_counts, around["solve_launches"])
     print(buf.getvalue(), flush=True)
-    per_it = (before_s + after_s) / 2 / res.iterations
-    ratio = rep["total per iteration"] / per_it
-    ok_a = (len(rep) == PHASES_REPORT_ROWS
-            and res.iterations == res_after.iterations
-            == READINGS["solve"]["iterations"]
-            and all(math.isfinite(v) for v in rep.values())
-            and all(v >= 0.0 for k, v in rep.items()
-                    if k.startswith("region."))
-            and PHASES_TOTAL_RATIO[0] <= ratio <= PHASES_TOTAL_RATIO[1]
-            and sum(counts_a["stiffness_lattice_3d"].values()) > 0
-            and sum(counts_a["lattice_face_sum_3d"].values()) > 0
-            and plain_calls(counts_a) == 0)
+    rep, counts_a, seconds_a = (around["report"], around["launches"],
+                                around["seconds"])
+    ratio, report_checks = _report_checks(rep, around, PHASES_REPORT_ROWS)
+    ok_a = (all(report_checks.values())
+            and around["result"].iterations == READINGS["solve"]["iterations"]
+            and sum(counts_a["lattice_face_sum_3d"].values()) > 0)
     emit({"phase": "phases-report", "card": card,
           "config": " ".join(CLI_MAIN), "seconds": seconds_a,
           "ms": {k: 1e3 * v for k, v in rep.items()},
           "solve_ms_per_iteration": {
-              "before": 1e3 * before_s / res.iterations,
-              "after": 1e3 * after_s / res.iterations, "mean": 1e3 * per_it},
+              "before": around["before_ms"], "after": around["after_ms"],
+              "mean": around["mean_ms"]},
           "solve_phase_ms_per_iteration": 1e3 * READINGS["solve"]["seconds"]
           / READINGS["solve"]["iterations"],
-          "total_over_solve": ratio, "launches": counts_a})
+          "total_over_solve": ratio, "checks": report_checks,
+          "launches": counts_a})
     line = {"phase": "phases", "card": card,
             "a": {"seconds": seconds_a, "total_over_solve": ratio,
                   "ok": ok_a},
@@ -4919,10 +4940,7 @@ SCALEUP_TIMEOUT = 900
 
 
 def _scaleup_record(key):
-    import os
-    root = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(root, SCALEUP_RECORDS[key])) as fh:
-        return json.load(fh)
+    return _json_record(SCALEUP_RECORDS[key])
 
 
 def _held_to_record(its, hist, err, ref, ptype):
@@ -4959,7 +4977,8 @@ def run_scaleup_32(torch, kernels, dev, path_counts, work):
     the f32 witness: the f32 composite's record (FGMRES-z16(4), inner
     FCG(4)) through studies/scaleup.py, held to r0, r1-r3 within 15% and
     max|u - u*|, and the same with its Z basis in f32, held to r0, r1-r3
-    within 5%, max|u - u*| and no more than its count + 1."""
+    within 5%, max|u - u*| and no more than its count + 1. Returns the
+    witness's setup (mesh, partition, Domain), for phase-p8-32."""
     import os
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import scaleup
     ref, ref_z16 = _scaleup_record("32"), _scaleup_record("32-z16")
@@ -5043,6 +5062,7 @@ def run_scaleup_32(torch, kernels, dev, path_counts, work):
         if not all(checks.values()):
             raise AssertionError(f"scaleup-32-f32 failed its checks: "
                                  f"{checks}")
+    return setup
 
 
 def check_scaleup_kernels(torch, kernels, dev, checked):
@@ -5050,7 +5070,8 @@ def check_scaleup_kernels(torch, kernels, dev, checked):
     bf16 mask, and mask and weight) on the 512^3 lattice of 64^3 N=7, each
     launched against its plain twin as the kernels phase holds it
     (``k1_line``, ``k2_line``) and timed warm beside its byte bound; their
-    launch signatures join ``checked``."""
+    launch signatures join ``checked``. Returns K1 f32's and K2 f32's
+    (mask only) warm ms."""
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_ms
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -5060,6 +5081,7 @@ def check_scaleup_kernels(torch, kernels, dev, checked):
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float64": torch.float64}
     U64, G64 = rand(), [rand() for _ in range(6)]
+    kernel_ms = {}
     for name, dt in dts.items():
         U, G = U64.to(dt), [g.to(dt) for g in G64]
         line = k1_line(torch, kernels, U, G, n, "scaleup-kernels")
@@ -5072,6 +5094,8 @@ def check_scaleup_kernels(torch, kernels, dev, checked):
             raise AssertionError(f"stiffness_lattice_3d disagrees at 512^3: "
                                  f"{line}")
         checked.add(("stiffness_lattice_3d", name, shape, n))
+        if name == "float32":
+            kernel_ms["k1"] = line["ms"]
         del U, G
     del G64
     mask = (rand() > 0).to(torch.bfloat16)
@@ -5091,7 +5115,10 @@ def check_scaleup_kernels(torch, kernels, dev, checked):
                                      f"512^3: {line}")
             checked.add(("lattice_face_sum_3d", name, shape, n, "bfloat16",
                          True, "weight" in kw))
+            if name == "float32" and "weight" not in kw:
+                kernel_ms["k2_mask"] = line["ms"]
     kernels.take_signatures()
+    return kernel_ms
 
 
 def run_scaleup_64(torch, kernels, dev, path_counts, checked):
@@ -5100,15 +5127,18 @@ def run_scaleup_64(torch, kernels, dev, path_counts, checked):
     held to artifacts/scaleup_64cubed_fgmres-z164i4.json and refined in
     f64 to 1e-7; (c) one more of its solves under the profiler, its K1 and
     K2 launches counted; (d) the FCG record's configuration,
-    run(64, 4, "fcg", refine_mode="none") on (b)'s mesh and Domain."""
+    run(64, 4, "fcg", refine_mode="none") on (b)'s mesh and Domain; between
+    (c) and (d) phase-64, the cube profile on (b)'s mesh, Domain, composite
+    and right-hand side."""
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import scaleup
-    check_scaleup_kernels(torch, kernels, dev, checked)
+    kernel_ms = check_scaleup_kernels(torch, kernels, dev, checked)
     torch.cuda.empty_cache()
     kernels.reset_counts()
     setup = scaleup.build_setup(64, device=dev)
-    prof = {}
+    prof, keep = {}, {}
 
-    def profiled(dom, solve, f):
+    def profiled(dom, solve, f, precond):
+        keep.update(f=f, precond=precond)
         before = _k12(kernels.counts())
         prof.update(profile_solve(torch, solve, f, phase="scaleup-64-profile",
                                   top_n=14, families=K12_FAMILIES))
@@ -5151,6 +5181,11 @@ def run_scaleup_64(torch, kernels, dev, path_counts, checked):
     if not all(checks.values()):
         raise AssertionError(f"scaleup-64 failed its checks: {checks}")
 
+    t0 = time.time()
+    run_phase_64(torch, kernels, dev, path_counts, setup, keep.pop("precond"),
+                 keep.pop("f"), kernel_ms)
+    emit({"phase": "phase-64", "seconds": time.time() - t0})
+    torch.cuda.empty_cache()
     kernels.reset_counts()
     rec = scaleup.run(64, 4, "fcg", refine_mode="none", setup=setup)
     counts = kernels.counts()
@@ -5180,7 +5215,8 @@ def run_scaleup_64(torch, kernels, dev, path_counts, checked):
 
 
 def run_scaleup_suite(record):
-    """scaleup-32 and scaleup-64 in a child process:
+    """scaleup-32, phase-p8-32 and scaleup-64 (with phase-64) in a child
+    process:
     ``start_suite("run_scaleup_suite")``."""
     import shutil
     import tempfile
@@ -5188,8 +5224,12 @@ def run_scaleup_suite(record):
     def body(torch, kernels, dev, path_counts, phase_done, checked):
         work = tempfile.mkdtemp(prefix="chip_smoke_scaleup_")
         try:
-            run_scaleup_32(torch, kernels, dev, path_counts, work)
+            problem = run_scaleup_32(torch, kernels, dev, path_counts, work)
             phase_done("scaleup-32")
+            run_phase_p8_32(torch, kernels, dev, path_counts, problem)
+            del problem
+            torch.cuda.empty_cache()
+            phase_done("phase-p8-32")
             run_scaleup_64(torch, kernels, dev, path_counts, checked)
             torch.cuda.empty_cache()
             phase_done("scaleup-64")
@@ -5401,7 +5441,7 @@ def run_pebble_1568(torch, kernels, dev, path_counts, checked):
     setup = pp.build_setup(1568, device=dev)
     prof = {}
 
-    def profiled(dom, solve, f):
+    def profiled(dom, solve, f, _precond):
         before = _k12_spmv(kernels.counts())
         prof.update(profile_solve(torch, solve, f, phase="pebble-1568-profile",
                                   top_n=14, families=K12_FAMILIES))
@@ -5444,22 +5484,33 @@ def run_pebble_1568(torch, kernels, dev, path_counts, checked):
 
 
 def run_pebble_suite(record):
-    """pebble-146 and pebble-1568 in a child process:
-    ``start_suite("run_pebble_suite")``."""
+    """pebble-146, pebble-1568, ablation and kershaw-sweep in a child
+    process, and femamg-i8, a CLI subprocess beside the last two (neither
+    is timed): ``start_suite("run_pebble_suite")``."""
     import shutil
     import tempfile
 
     def body(torch, kernels, dev, path_counts, phase_done, checked):
         work = tempfile.mkdtemp(prefix="chip_smoke_pebble_")
-        failed = []
+        failed, started = [], []
+
+        def ablation():
+            started.append(start_femamg_i8(work))
+            run_ablation(torch, kernels, dev, path_counts)
+
         try:
-            # both phases run, so that a miss in the first leaves the
-            # second's readings in the output too
+            # every phase runs, so that a miss in one leaves the others'
+            # readings in the output too
             for name, phase in (
                     ("pebble-146", lambda: run_pebble_146(
                         torch, kernels, dev, path_counts, work)),
                     ("pebble-1568", lambda: run_pebble_1568(
-                        torch, kernels, dev, path_counts, checked))):
+                        torch, kernels, dev, path_counts, checked)),
+                    ("ablation", ablation),
+                    ("kershaw-sweep", lambda: run_kershaw_sweep(
+                        torch, kernels, dev, path_counts, work)),
+                    ("femamg-i8", lambda: finish_femamg_i8(
+                        torch, kernels, started[0], path_counts))):
                 try:
                     phase()
                 except AssertionError as e:
@@ -5467,11 +5518,476 @@ def run_pebble_suite(record):
                 torch.cuda.empty_cache()
                 phase_done(name)
         finally:
+            for _, _, procs, _ in started:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
             shutil.rmtree(work, ignore_errors=True)
         if failed:
             raise AssertionError(f"pebble suite: {failed}")
 
     run_child_phases(record, body)
+
+
+# ---------------------------------------------------------------------------
+# The reference's recorded studies beyond one shard (ROADMAP §4c):
+# studies/phase_profiles.py's three profiles (the multi-group composite
+# over P = 8 at Kershaw 32^3 in the scale-up child, the 64^3 mesh there
+# too, the scrambled 16^3 mesh alone at the end of main()) with
+# phase_report on the same composites, studies/strong_scaling_ablate.py,
+# fem-amg with 8 inner steps through the CLI and runtime/sweep's Kershaw
+# epsilon sweep (in the pebble child; the CLI run beside the ablation and
+# the sweep, which are not timed).
+# The JAX package's profile records are printed beside the card's, never
+# held: p8's is single-core XLA on the CPU (its "backend"), the others a
+# TPU's.
+
+PROFILE_RECORDS = {"p8": "artifacts/phase_p8_32cubed.json",
+                   "unstructured": "artifacts/phase_unstructured_16cubed.json",
+                   "cube": "artifacts/phase_64cubed.json"}
+P8_SHARDS = 8
+P8_REPORT_ITERATIONS = 10
+P8_REPORT_CHAIN_ITERS = 4       # the p8 profile's chain length
+P8_YARD_REPEATS = 2             # best of, before and after the report
+P8_TREE_KINDS = ("tree_cascade", "tree_rhs", "tree_rings", "tree_coarse")
+# a difference-timed 64^3 chain against the kernel's own warm time, both
+# measured in scaleup-64: the card is busy 71-97% of a solve there, so a
+# region below 0.9x its kernel means the chain timing is wrong
+PROFILE_KERNEL_RATIO = 0.9
+# artifacts/strong_scaling_ablate.json: finite history entries, +-1
+ABLATION_WINDOW = 1
+# fem-amg with 8 inner steps (artifacts/run_femamg_i8.py's Config) and
+# its record
+FEMAMG_I8 = ["7", "6", "1", "1", "--mesh", "kershaw", "--shape", "16,16,16",
+             "--epsilon", "0.3", "--inner", "fem-amg",
+             "--inner-iterations", "8", "--max-iterations", "200"]
+FEMAMG_I8_RECORD = "artifacts/femamg_production_16cubed_i8.json"
+SWEEP_RECORDS = "artifacts/kershaw_sweep"
+# a record of the JAX package's driver (fem-amg i8, the sweep): count +-1,
+# r0 within 1e-5, r1-r3 within 5%, max|u - u*| within 2x
+DRIVER_COUNT_WINDOW = 1
+DRIVER_R0_RTOL = 1e-5
+DRIVER_R13_RTOL = 0.05
+DRIVER_ERR_RATIO = 2.0
+
+
+def _json_record(path):
+    import os
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           path)) as fh:
+        return json.load(fh)
+
+
+def _shares(d):
+    total = sum(d.values())
+    return {k: (v / total if total else None) for k, v in d.items()}
+
+
+def _memo_builder(builder, mesh):
+    """``builder`` behind a cache that starts with ``mesh``: the
+    composites of a phase rebuild no mesh."""
+    meshes = {mesh.poly_degree: mesh}
+
+    def build(o):
+        if o not in meshes:
+            meshes[o] = builder(o)
+        return meshes[o]
+    return build
+
+
+def _report_around(torch, kernels, dom, solve, f, report, repeats=3):
+    """``report()`` between two timings of ``solve(f)`` (best of
+    ``repeats`` each); returns the report, its launches and seconds, the
+    solve's seconds an iteration before and after, its result and the
+    solves' launches."""
+    before_s, res, counts_s = best_solve_seconds(torch, kernels, solve, f,
+                                                 repeats)
+    kernels.reset_counts()
+    t0 = time.time()
+    rep = report()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = kernels.counts()
+    after_s, res_after, counts_after = best_solve_seconds(
+        torch, kernels, solve, f, repeats)
+    add_counts(counts_s, counts_after)
+    its = res.iterations
+    return {"report": rep, "launches": counts, "seconds": seconds,
+            "before_ms": 1e3 * before_s / its,
+            "after_ms": 1e3 * after_s / its,
+            "mean_ms": 1e3 * (before_s + after_s) / 2 / its,
+            "result": res, "same_count": res_after.iterations == its,
+            "solve_launches": counts_s}
+
+
+def _report_checks(rep, around, rows):
+    import math
+    ratio = 1e3 * rep["total per iteration"] / around["mean_ms"]
+    counts = around["launches"]
+    return ratio, {
+        "rows": len(rep) == rows,
+        "finite": all(math.isfinite(v) for v in rep.values()),
+        "regions_nonnegative": all(v >= 0.0 for k, v in rep.items()
+                                   if k.startswith("region.")),
+        "total_over_solve": (PHASES_TOTAL_RATIO[0] <= ratio
+                             <= PHASES_TOTAL_RATIO[1]),
+        "same_count": around["same_count"],
+        "k1": sum(counts["stiffness_lattice_3d"].values()) > 0,
+        "plain_calls": plain_calls(counts) == 0}
+
+
+def run_phase_p8_32(torch, kernels, dev, path_counts, problem):
+    """The p8 profile (artifacts/phase_p8_32cubed.py) on the 32^3 N=7 mesh
+    of ``problem`` (scaleup-32's f32 witness setup) over P = 8 shards:
+    the bf16 composite r = 6, inner "amg", 4 inner steps; its 15 chains'
+    scalars and times finite, the tree kinds' per-application time above 0 (real work at
+    P > 1), K1 per composite apply and K2 per composite dssum equal to G.
+    Then runtime/phases.phase_report on the same Domain and composite,
+    its total per iteration within PHASES_TOTAL_RATIO of a 20-step f32
+    FGMRES(20) solve's, timed just before and just after it. The 17
+    regions print as shares of their sum beside the record's (single-core
+    XLA on the CPU: printed, not held)."""
+    import io
+    import math
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.mesh.partition import partition_mesh
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.phases import phase_report
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import phase_profiles as pp
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.memory import StageLog
+    mesh = problem.mesh
+    mk = _memo_builder(problem.mesh_builder, mesh)
+    stages = StageLog(dev)
+    dom = Domain(partition_mesh(mesh, P8_SHARDS), dtype=torch.float32,
+                 device=dev)
+    stages.mark("partition+domain")
+    kernels.reset_counts()
+    pre = composite_dd(dom, mk, poly_reduction=6, inner="amg",
+                       ptype=torch.bfloat16, num_iterations=4,
+                       fine_mesh=mesh)
+    stages.mark("composite")
+    groups = len(pre.extra["specs"])
+    f = dom.manufacture_rhs(dom.initial_function(4, seed=0))
+    stages.mark("rhs")
+    add_counts(path_counts, kernels.counts())
+    k1_apply, k2_dssum, k2_batched = composite_launches(torch, kernels, pre,
+                                                        dom, f)
+    # every chain's scalar, one application each
+    kernels.reset_counts()
+    scalars = {k: float(dom.phase_chain(pre, k, 1)(f))
+               for k in pp.KINDS["p8"]}
+    add_counts(path_counts, kernels.counts())
+    # the profile
+    kernels.reset_counts()
+    rec = pp.run("p8", setup=pp.Setup(mesh_builder=mk, mesh=mesh, dom=dom,
+                                      precond=pre, f=f))
+    counts_p = kernels.counts()
+    add_counts(path_counts, counts_p)
+    raw = rec["raw_ms"]
+    ref = _json_record(PROFILE_RECORDS["p8"])
+    # the report between two timings of 20 FGMRES(20) steps
+    solve = dom.solver(method="fgmres", max_iterations=SHORT_STEPS,
+                       tolerance=1e-30, precond=pre)
+    cfg = Config(shape=(32, 32, 32), poly_reduction=6, ptype="bfloat16",
+                 inner_iterations=4, num_shards=P8_SHARDS)
+    buf = io.StringIO()
+    around = _report_around(
+        torch, kernels, dom, solve, f,
+        lambda: phase_report(dom, mk, cfg=cfg,
+                             iterations=P8_REPORT_ITERATIONS, out=buf,
+                             chain_iters=P8_REPORT_CHAIN_ITERS, precond=pre),
+        repeats=P8_YARD_REPEATS)
+    add_counts(path_counts, around["launches"])
+    add_counts(path_counts, around["solve_launches"])
+    print(buf.getvalue(), flush=True)
+    rep, res = around["report"], around["result"]
+    hist = res.residual_history.cpu().double()
+    hist = hist[torch.isfinite(hist)]
+    ratio, report_checks = _report_checks(rep, around, PHASES_REPORT_ROWS)
+    checks = {
+        "chain_scalars_finite": all(math.isfinite(v)
+                                    for v in scalars.values()),
+        "chain_times_finite": all(math.isfinite(v) for v in raw.values()),
+        "tree_kinds_positive": all(raw[k] > 0.0 for k in P8_TREE_KINDS),
+        "k1_per_composite_apply": k1_apply == groups,
+        "k2_per_composite_dssum": k2_dssum == groups,
+        "profile_k1": sum(counts_p["stiffness_lattice_3d"].values()) > 0,
+        "profile_plain_calls": plain_calls(counts_p) == 0,
+        **{f"report_{k}": v for k, v in report_checks.items()}}
+    line = {"phase": "phase-p8-32", "card": rec["card"],
+            "mesh": rec["mesh"], "shards": P8_SHARDS, "groups": groups,
+            "points": mesh.num_points, "stages": stages.as_dict(),
+            "profile_stages": rec["stages"],
+            "k1_per_composite_apply": k1_apply,
+            "k2_per_composite_dssum": k2_dssum,
+            "k2_batched_per_composite_dssum": k2_batched,
+            "chain_scalars": scalars,
+            "raw_ms": raw, "regions_ms": rec["regions_ms"],
+            "region_shares": _shares(rec["regions_ms"]),
+            "record_backend": ref["backend"],
+            "record_region_shares": _shares(ref["regions_ms"]),
+            "report_ms": {k: 1e3 * v for k, v in rep.items()},
+            "report_seconds": around["seconds"],
+            "report_launches": around["launches"],
+            "steps20": {"iterations": res.iterations,
+                        "r20_over_r0": float(hist[-1] / hist[0]),
+                        "residuals": [float(x) for x in hist[:4]],
+                        "ms_per_iteration": {
+                            "before": around["before_ms"],
+                            "after": around["after_ms"],
+                            "mean": around["mean_ms"]}},
+            "total_over_solve": ratio, "launches": counts_p,
+            "checks": checks}
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"phase-p8-32 failed its checks: {checks}")
+
+
+def run_phase_64(torch, kernels, dev, path_counts, problem, pre, f,
+                 kernel_ms):
+    """The cube profile (artifacts/phase_64cubed.py) on scaleup-64's mesh,
+    Domain, bf16 composite (the driver's own, handed to the after_solve hook:
+    none is built here) and right-hand side: its 12 chains finite, the
+    operator region (op - dssum) at least PROFILE_KERNEL_RATIO of K1
+    f32's warm time at 512^3 and the dssum region (dssum - nrm) of K2
+    f32's with the mask (``kernel_ms``, the same phase's). The TPU
+    record's 9 kinds print beside (not held)."""
+    import math
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import phase_profiles as pp
+    kernels.reset_counts()
+    rec = pp.run("cube", setup=pp.Setup(
+        mesh_builder=problem.mesh_builder, mesh=problem.mesh,
+        dom=problem.dom, precond=pre, f=f))
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    ref = _json_record(PROFILE_RECORDS["cube"])
+    op_ms = 1e3 * (rec["op"] - rec["dssum"])
+    dssum_ms = 1e3 * (rec["dssum"] - rec["nrm"])
+    checks = {
+        "chains_finite": all(math.isfinite(rec[k])
+                             for k in pp.KINDS["cube"]),
+        "op_vs_k1_f32": op_ms >= PROFILE_KERNEL_RATIO * kernel_ms["k1"],
+        "dssum_vs_k2_f32_mask": (dssum_ms >= PROFILE_KERNEL_RATIO
+                                 * kernel_ms["k2_mask"]),
+        "k1": sum(counts["stiffness_lattice_3d"].values()) > 0,
+        "plain_calls": plain_calls(counts) == 0}
+    line = {"phase": "phase-64", "card": rec["card"], "mesh": rec["mesh"],
+            "composite_rebuilt": False,
+            "ms": {k: 1e3 * rec[k] for k in pp.KINDS["cube"]},
+            "record_ms_tpu": {k: 1e3 * v for k, v in ref.items()},
+            "operator_region_ms": op_ms, "dssum_region_ms": dssum_ms,
+            "k1_f32_512_ms": kernel_ms["k1"],
+            "k2_f32_mask_512_ms": kernel_ms["k2_mask"],
+            "stages": rec["stages"], "launches": counts, "checks": checks}
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"phase-64 failed its checks: {checks}")
+
+
+def run_phase_unstructured(torch, kernels, dev, path_counts):
+    """The unstructured profile (artifacts/phase_unstructured.py) on the
+    scrambled 16^3 N=7 mesh (seed 7, f32 composite r = 6, inner "amg", 4
+    inner steps), then runtime/phases.phase_report on the same composite
+    (its tree_levels row), between two timings of the same f32
+    FGMRES(20) solve: every chain finite, the report's total per
+    iteration within PHASES_TOTAL_RATIO of the solve's. The TPU record
+    prints beside (not held)."""
+    import io
+    import math
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.config import Config
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.phases import phase_report
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import phase_profiles as pp
+    t0 = time.time()
+    kernels.reset_counts()
+    s = pp.build_setup("unstructured", device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    mk = _memo_builder(s.mesh_builder, s.mesh)
+    solve = s.dom.solver(method="fgmres", max_iterations=200,
+                         precond=s.precond)
+    profile = {}
+    buf = io.StringIO()
+    cfg = Config(shape=(16, 16, 16), scramble=pp.SCRAMBLE_SEED,
+                 poly_reduction=6, ptype="float32", inner_iterations=4)
+
+    def report():
+        profile.update(pp.run("unstructured", setup=pp.Setup(
+            mesh_builder=mk, mesh=s.mesh, dom=s.dom, precond=s.precond,
+            f=s.f)))
+        return phase_report(s.dom, mk, cfg=cfg, iterations=10, out=buf,
+                            precond=s.precond)
+
+    around = _report_around(torch, kernels, s.dom, solve, s.f, report)
+    add_counts(path_counts, around["launches"])
+    add_counts(path_counts, around["solve_launches"])
+    print(buf.getvalue(), flush=True)
+    rep = around["report"]
+    ref = _json_record(PROFILE_RECORDS["unstructured"])
+    rows = len(rep)
+    ratio, report_checks = _report_checks(rep, around, rows)
+    levels = [k for k in rep if "tree_exchange.levels" in k]
+    checks = {"chains_finite": all(math.isfinite(v) for v in
+                                   profile["chains_ms"].values()),
+              "tree_levels_row": len(levels) == 1,
+              **{f"report_{k}": v for k, v in report_checks.items()}}
+    line = {"phase": "phase-unstructured", "card": profile["card"],
+            "mesh": profile["mesh"], "setup_seconds": setup_s,
+            "iterations": around["result"].iterations,
+            "chains_ms": profile["chains_ms"],
+            "regions_ms": profile["regions_ms"],
+            "record_chains_ms_tpu": ref["chains_ms"],
+            "record_regions_ms_tpu": ref["regions_ms"],
+            "report_ms": {k: 1e3 * v for k, v in rep.items()},
+            "report_seconds": around["seconds"],
+            "solve_ms_per_iteration": {"before": around["before_ms"],
+                                       "after": around["after_ms"],
+                                       "mean": around["mean_ms"]},
+            "total_over_solve": ratio, "launches": around["launches"],
+            "checks": checks}
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"phase-unstructured failed its checks: "
+                             f"{checks}")
+
+
+def run_ablation(torch, kernels, dev, path_counts):
+    """studies/strong_scaling_ablate.py on the card in f64: every count
+    within ABLATION_WINDOW of artifacts/strong_scaling_ablate.json, and
+    where the record holds an error (v2 at P = 8: rings deeper than a
+    slab) the composite build raises the same before any solve."""
+    import io
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import strong_scaling_ablate as sa
+    ref = _json_record("artifacts/strong_scaling_ablate.json")
+    kernels.reset_counts()
+    t0 = time.time()
+    buf = io.StringIO()
+    rec = sa.run(device=dev, out=buf)
+    seconds = time.time() - t0
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    bad = []
+    for tag, c in ref["configs"].items():
+        mine = rec["configs"][tag]
+        if mine["knobs"] != c["knobs"]:
+            bad.append((tag, "knobs"))
+        for P, want in c["per_P"].items():
+            got = mine["per_P"][P]
+            if "error" in want:
+                if got.get("error") != want["error"]:
+                    bad.append((tag, P, got))
+            elif not (got.get("converged") and abs(
+                    got["iterations"] - want["iterations"])
+                    <= ABLATION_WINDOW):
+                bad.append((tag, P, got))
+    line = {"phase": "ablation", "mesh": rec["mesh"],
+            "points": rec["points"], "seconds": seconds,
+            "iterations": {t: [v.get("iterations", "error")
+                               for v in c["per_P"].values()]
+                           for t, c in rec["configs"].items()},
+            "record_iterations": {t: [v.get("iterations", "error")
+                                      for v in c["per_P"].values()]
+                                  for t, c in ref["configs"].items()},
+            "errors": {t: {P: v["error"] for P, v in c["per_P"].items()
+                           if "error" in v}
+                       for t, c in rec["configs"].items()},
+            "launches": counts, "bad": bad}
+    emit(line)
+    if bad or plain_calls(counts) or not sum(
+            counts["stiffness_lattice_3d"].values()):
+        raise AssertionError(f"ablation failed its checks: {line}")
+
+
+def _driver_checks(rec, ref):
+    """A run of the port's driver against the JAX package's record of the
+    same configuration: the count, r0, r1-r3, max|u - u*| and the
+    configuration fields the two records share."""
+    h, r = rec["residual_history"], ref["residual_history"]
+    cfg, ref_cfg = json.loads(rec["config"]), json.loads(ref["config"])
+    shared = sorted(set(cfg) & set(ref_cfg))
+    r13 = [h[k] / r[k] for k in (1, 2, 3)] if len(h) > 3 else []
+    return r13, {
+        "converged": rec["converged"],
+        "iterations": abs(rec["iterations"] - ref["iterations"])
+        <= DRIVER_COUNT_WINDOW,
+        "r0": abs(h[0] / r[0] - 1.0) <= DRIVER_R0_RTOL,
+        "r1_r3": bool(r13) and all(abs(x - 1.0) <= DRIVER_R13_RTOL
+                                   for x in r13),
+        "max_error": (1.0 / DRIVER_ERR_RATIO <= rec["max_error"]
+                      / ref["max_error"] <= DRIVER_ERR_RATIO),
+        "config": all(cfg[k] == ref_cfg[k] for k in shared)}
+
+
+def start_femamg_i8(work):
+    """FEMAMG_I8 through the CLI in a subprocess: ``finish_femamg_i8``
+    waits for it."""
+    import os
+    return start_cli_processes(FEMAMG_I8, 1, os.path.join(work, "femamg_i8"))
+
+
+def finish_femamg_i8(torch, kernels, started, path_counts):
+    """fem-amg with 8 inner steps held to its record: 13 +-1 iterations,
+    r0 within 1e-5, r1-r3 within 5%, max|u - u*| within 2x; its launch
+    signatures join the next check_launched."""
+    (log, rec, seconds), = finish_cli_processes(kernels, started,
+                                                path_counts)
+    r, ref = rec["record"], _json_record(FEMAMG_I8_RECORD)
+    r13, checks = _driver_checks(r, ref)
+    checks["spmv"] = sum(rec["counts"].get("csr_spmv", {}).values()) > 0
+    checks["plain_calls"] = plain_calls(rec["counts"]) == 0
+    line = {"phase": "femamg-i8", "argv": " ".join(FEMAMG_I8),
+            "seconds": seconds, "iterations": r["iterations"],
+            "record_iterations": ref["iterations"],
+            "residuals": r["residual_history"][:4],
+            "record_residuals": ref["residual_history"][:4],
+            "r1_r3_over_record": r13, "max_error": r["max_error"],
+            "record_max_error": ref["max_error"],
+            "solve_run_seconds": r["solve_seconds"],
+            "ms_per_iteration": 1e3 * r["solve_seconds"]
+            / max(r["iterations"], 1),
+            "setup_seconds": _setup_seconds(r), "stages": rec["stages"],
+            "launches": rec["counts"], "checks": checks,
+            "timer_report": _timer_lines(log)}
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"femamg-i8 failed its checks: {checks}")
+
+
+def run_kershaw_sweep(torch, kernels, dev, path_counts, work):
+    """runtime/sweep.kershaw_sweep on the card (8^3 N=7, epsilon 1.0 and
+    0.3), each point held to artifacts/kershaw_sweep/ as a driver record
+    (``_driver_checks``)."""
+    import os
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.runtime.sweep import kershaw_sweep
+    kernels.reset_counts()
+    t0 = time.time()
+    recs = kershaw_sweep(os.path.join(work, "kershaw_sweep"), device=dev)
+    seconds = time.time() - t0
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    bad = {}
+    lines = []
+    for rec in recs:
+        ref = _json_record(f"{SWEEP_RECORDS}/{rec['name']}.json")
+        r13, checks = _driver_checks(rec, ref)
+        lines.append({"name": rec["name"], "iterations": rec["iterations"],
+                      "record_iterations": ref["iterations"],
+                      "residuals": rec["residual_history"][:4],
+                      "record_residuals": ref["residual_history"][:4],
+                      "r1_r3_over_record": r13,
+                      "max_error": rec["max_error"],
+                      "record_max_error": ref["max_error"],
+                      "solve_run_seconds": rec["solve_seconds"],
+                      "checks": checks})
+        if not all(checks.values()):
+            bad[rec["name"]] = checks
+    line = {"phase": "kershaw-sweep", "seconds": seconds, "points": lines,
+            "names": [r["name"] for r in recs], "launches": counts}
+    emit(line)
+    if (bad or [r["name"] for r in recs] != ["epsilon-1.0", "epsilon-0.3"]
+            or plain_calls(counts) or min(_k12(counts)) == 0):
+        raise AssertionError(f"kershaw-sweep failed its checks: {bad}")
 
 
 def build_main_path(torch, dev):
@@ -5697,6 +6213,8 @@ def main():
     run_phases(torch, kernels, dev, mesh, mk, dom, pre, solve, f, path_counts,
                card)
     phase_done("phases")
+    run_phase_unstructured(torch, kernels, dev, path_counts)
+    phase_done("phase-unstructured")
     # a short solve's profile parsed both ways: the raw parse every profile
     # line reads against torch's own. Last, so that no timed window of this
     # process runs after torch's FunctionEvent tree was built

@@ -192,9 +192,10 @@ def simulate(cfg: Config, out=None, device=None, *, problem=None,
     problem: a ``build_problem`` of a configuration with ``cfg``'s mesh,
       order, shards and stype to solve on, on its device (None: built
       here, inside the timer's ``setup.domain``).
-    after_solve: called as ``after_solve(dom, solve, f)`` after the timed
-      solves, before the refinement (e.g. to profile one more solve); its
-      time and memory are in no stage.
+    after_solve: called as ``after_solve(dom, solve, f, precond)`` after
+      the timed solves, before the refinement (e.g. to profile one more
+      solve, or to time the composite's regions); its time and memory
+      are in no stage.
     """
     out = sys.stdout if out is None else out
     # checked before any work (the JAX driver checks it after the solve)
@@ -301,7 +302,7 @@ def simulate(cfg: Config, out=None, device=None, *, problem=None,
                   file=out)
     stages.mark("solve")
     if after_solve is not None:
-        after_solve(dom, solve, f)
+        after_solve(dom, solve, f, pre)
         stages.start()
 
     refined, rr = {}, None

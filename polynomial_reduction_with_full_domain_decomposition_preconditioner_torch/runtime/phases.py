@@ -75,9 +75,12 @@ def _chain_time(dom, pre, kind, f, iters=12, repeats=3):
 
 
 def phase_report(dom, mesh_builder, cfg=None, iterations: int = 10,
-                 out=sys.stdout, chain_iters: int = 12) -> dict:
+                 out=sys.stdout, chain_iters: int = 12,
+                 precond=None) -> dict:
     """Print and return the per-phase tables (the reference's schema) for
-    the composite-preconditioned solve."""
+    the composite-preconditioned solve. ``precond``: the configuration's
+    inner "amg" composite if already built on ``dom`` (built here when
+    None); the "none" and "jacobi" composites are built here."""
     from ..solvers import subdomain as sub
     from .config import Config
 
@@ -103,7 +106,7 @@ def phase_report(dom, mesh_builder, cfg=None, iterations: int = 10,
                             **kw)
     t_jac, _ = _timed_solve(dom, f, method=cfg.solver,
                             precond=pre("jacobi"), **kw)
-    pre_full = pre("amg")
+    pre_full = pre("amg") if precond is None else precond
     t_full, _ = _timed_solve(dom, f, method=cfg.solver, precond=pre_full,
                              **kw)
 

@@ -23,7 +23,6 @@ the ``cudaLaunchKernel`` calls of one preconditioner application.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from functools import partial
@@ -38,6 +37,7 @@ from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.op
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.domain import Domain
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.refine import refine_solve
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.solvers.subdomain import composite_dd
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import card
 
 
 def _seconds(fn, n):
@@ -94,7 +94,7 @@ def run(tag: str, solves: int = 5, applies: int = 20) -> dict:
     rr = refine_solve(dom64, solve, dom64.manufacture_rhs(u64),
                       tolerance=1e-10)
     return {
-        "tag": tag, "card": _card(), "iterations": its,
+        "tag": tag, "card": card(dev), "iterations": its,
         "residuals": [float(x) for x in hist[:6]],
         "solve_seconds": solve_s,
         "k1_per_iteration": sum(counts["stiffness_lattice_3d"].values()) / its,
@@ -106,12 +106,6 @@ def run(tag: str, solves: int = 5, applies: int = 20) -> dict:
                                   for e in top[:8]],
         "refine_cycles": rr.cycles, "refine_rel_residual": rr.rel_residual,
     }
-
-
-def _card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
 
 
 def run_spmd(tag: str, solves: int = 3) -> list:
@@ -154,7 +148,7 @@ def run_spmd(tag: str, solves: int = 3) -> list:
         launches = sum(e.count for e in prof.key_averages()
                        if e.key == "cudaLaunchKernel") / 3
         out.append({
-            "tag": tag, "card": _card(), "shards": P,
+            "tag": tag, "card": card(dev), "shards": P,
             "ptype": str(ptype).replace("torch.", ""),
             "iterations": its, "converged": bool(res.converged),
             "residuals": [float(x) for x in hist[:6]],

@@ -122,8 +122,8 @@ def run(k: int = 146, *, config: Config | None = None, device=None,
     config: the configuration to run (None: the script's, ``config(k)``);
       it must be family ``k``'s mesh.
     setup: a ``build_setup(k, device)`` to reuse; built here when None.
-    after_solve: the driver's hook, ``after_solve(domain, solve, f)``
-      after the timed solves (e.g. to profile one more solve).
+    after_solve: the driver's hook, ``after_solve(domain, solve, f,
+      precond)`` after the timed solves (e.g. to profile one more solve).
     The driver's text goes to standard error.
     """
     fam = _family(k)

@@ -54,7 +54,7 @@ def run(m: int = 32, small: int = 8, seeds: int = 3, device=None) -> dict:
     setup = scaleup.build_setup(m, device=device)
     perturbed = []
 
-    def one_ulp(dom, solve, f):
+    def one_ulp(dom, solve, f, _precond):
         for seed in range(1, seeds + 1):
             gen = torch.Generator(device=f.device).manual_seed(seed)
             sign = (2 * torch.randint(0, 2, f.shape, generator=gen,

@@ -123,8 +123,8 @@ def run(m: int = 64, inner_iters: int = 3, method: str = "fcg", nv: int = 8,
 
     setup: a ``build_setup(m, epsilon, device)`` to reuse; built here when
       None.
-    after_solve: the driver's hook, ``after_solve(domain, solve, f)``
-      after the timed solves (e.g. to profile one more solve).
+    after_solve: the driver's hook, ``after_solve(domain, solve, f,
+      precond)`` after the timed solves (e.g. to profile one more solve).
     The driver's text goes to standard error.
     """
     cfg = config(m, inner_iters, method, nv, epsilon, cheby_order,

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import io
 import json
-import subprocess
 import sys
 import time
 from functools import partial
@@ -31,6 +30,7 @@ from ..runtime.config import Config
 from ..runtime.phases import phase_report
 from ..solvers.domain import Domain
 from ..solvers.subdomain import composite_dd
+from ..utils.timing import card
 
 
 def _events(solve, f, runs):
@@ -65,10 +65,8 @@ def _ms(seconds, iterations):
 def run(rounds: int = 2, runs: int = 5) -> list:
     cuda_lib.build()
     cuda_lib.load()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
+    name = card(dev)
     meshes = {}
 
     def mk(order):
@@ -90,7 +88,7 @@ def run(rounds: int = 2, runs: int = 5) -> list:
     cfg = Config(poly_reduction=6, ptype="bfloat16")
     lines = []
     for r in range(rounds):
-        line = {"round": r, "card": card}
+        line = {"round": r, "card": name}
         for name, solve in solves.items():
             line[f"{name}, events"] = _ms(*_events(solve, f, runs))
             line[f"{name}, host"] = _ms(*_host(solve, f, runs))

@@ -15,14 +15,13 @@ one call to the card as
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import torch
 
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.ops import kernels
 from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies.stiffness_precision import make_inputs
-from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import cuda_cold_ms, cuda_ms
+from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.utils.timing import card, cuda_cold_ms, cuda_ms
 
 N = 8
 
@@ -32,10 +31,7 @@ def run(sizes=(128, 512)) -> dict:
     "<dtype> <m>^3 warm|cold" in ms."""
     if not torch.cuda.is_available():
         raise RuntimeError("split_timing times kernels: it needs a card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
-    out = {"card": card, "k3": {}, "k1": {}}
+    out = {"card": card(), "k3": {}, "k1": {}}
     for m in sizes:
         iters = 20 if m <= 128 else 5
         for dtype in (torch.bfloat16, torch.float32):

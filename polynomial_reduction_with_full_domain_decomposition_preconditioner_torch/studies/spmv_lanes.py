@@ -16,7 +16,6 @@ card.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import warnings
 from functools import partial
@@ -29,7 +28,7 @@ from ..ops import kernels
 from ..ops.csr import CsrMatrix, sparse_spmv
 from ..solvers.domain import Domain
 from ..solvers.subdomain import composite_dd
-from ..utils.timing import cuda_ms
+from ..utils.timing import card, cuda_ms
 
 LANES = (1, 2, 4, 8, 16, 32)
 
@@ -71,13 +70,11 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     side = int(argv[0]) if argv else 16
     order = int(argv[1]) if len(argv) > 1 else 7
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    name = card()
     ok = True
     for k, rec in enumerate(run(side, order)):
         if k == 0:
-            rec["card"] = card
+            rec["card"] = name
         print(json.dumps(rec), flush=True)
         ok = ok and all(same for _, same in rec["ms"].values())
     return 0 if ok else 1

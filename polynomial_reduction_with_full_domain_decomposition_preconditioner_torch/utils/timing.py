@@ -1,16 +1,40 @@
-"""Timing of device work with CUDA events."""
+"""Timing of device work with CUDA events, and the card a time is
+taken on."""
 
 from __future__ import annotations
 
+import subprocess
 import time
 
 import torch
 
-__all__ = ["cuda_ms", "cuda_cold_ms"]
+__all__ = ["card", "cuda_ms", "cuda_cold_ms"]
 
 _HOLD_CYCLES = 40_000_000   # ~20 ms at the H100's clocks
 _CYCLES_PER_S = 2.0e9        # no less than the spin takes: the H100 boosts to 1.98 GHz
 _FLUSH_BYTES = 256 << 20     # five times the H100's 50 MB L2
+
+
+def card(device=None) -> str:
+    """The name and power limit of the card ``device`` names (None: the
+    current card) as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them, the line a time is kept beside;
+    ``str(device)`` for a device off the card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        return str(device)
+    # nvidia-smi numbers the cards its own way: find this one by its UUID
+    uuid = str(torch.cuda.get_device_properties(device).uuid)
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    for row in rows:
+        smi_uuid, name_limit = row.split(", ", 1)
+        if smi_uuid.endswith(uuid):
+            return name_limit
+    raise RuntimeError(f"nvidia-smi lists no card with UUID {uuid}: "
+                       f"{rows}")
 
 
 def _hold_stream(enqueue) -> None:
