@@ -142,10 +142,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
            permute=False, 4 shards, f64) with the far field compressed
            and not: both converge to 1e-8, counts +-1 of the CPU's (19)
   (the 2-D phases below, small-2d to unstructured-spmd-2d and
-  multiprocess-2d, run in a child process of the script, beside the
-  phases from spmd-ops to unstructured-femamg; the child's output is
-  printed when it has ended, with a "2-D suite" line of its phases'
-  seconds)
+  multiprocess-2d, and then femamg-i4-ablate, run in a child process of
+  the script, beside the phases from spmd-ops to unstructured-femamg;
+  the child's output is printed when it has ended, with a "2-D suite"
+  line of its phases' seconds)
   small-2d  the structured 2-D path, Kershaw (6, 6) N=7 f64 on the card
            against the CPU: FGMRES with composite_dd(poly_reduction=3) and
            FCG with pmultigrid(poly_reduction=3), equal counts, the
@@ -212,6 +212,15 @@ Phases, each printing JSON lines (any failure exits non-zero):
            scrambled unstructured composite (f32: residuals within 2e-2
            relative and r20 / r0 within 1.05x; f64: within 1e-9). No
            phase of these four may launch K1 or K2
+  femamg-i4-ablate  (last in the 2-D child)
+           studies/femamg_i4_ablate.py, the fem-amg V-cycle ablation at
+           inner(4) (artifacts/run_femamg_i4_ablate.py: base, cheb4, v22,
+           c4v2) on the main path's mesh: base held to
+           artifacts/femamg_production_16cubed.json as the femamg phase
+           holds it (26 +- 1 iterations, r0 within 1e-5), every tag
+           converged within 200 iterations, the four counts printed; the
+           SpMV launched, and two outer steps of c4v2's composite under
+           the profiler with no cuSPARSE kernel
   (the pebble phases and the three after them run in a child process of
   their own, started with the 2-D child and beside the same phases;
   main() waits for it after the 2-D child; a "pebble suite" line gives
@@ -275,7 +284,18 @@ Phases, each printing JSON lines (any failure exits non-zero):
            method "fgmres-z16" (the record's bf16 Z basis) with r0 within
            5e-3, r1-r3 within 15% and max|u-u*| within 2x, and "fgmres"
            (the Z basis in f32: no bf16 rounding anywhere) with r1-r3
-           within 5% and at most its 23 + 1 iterations besides
+           within 5% and at most its 23 + 1 iterations besides; both
+           print their plateau steps (r_k / r0 within 1e-4-2e-4)
+  scaleup-32-ablate  the four 32^3 records of artifacts/run_64cubed.py no
+           other phase holds, through studies/scaleup.run(32, 4,
+           "fgmres-z16", ...) on the witness's setup: Chebyshev(4) (c4v1),
+           inner FCG(4) in bf16 refined on the host to 1e-7 (isfcg), and
+           restarts 5 and 8 (z165i4, z168i4); each converged with r0
+           within 5e-3, max|u-u*| within 2x, K1 and K2 launched; the
+           inner-FGMRES forms at most the record's count + 1 with r1-r3
+           within 15%; isfcg r1-r3 within 15%, its count printed, refined
+           in at most the record's 6 + 1 cycles, its plateau steps
+           printed
   phase-p8-32  the region profile of artifacts/phase_p8_32cubed.py
            (studies/phase_profiles.py "p8") on scaleup-32's 32^3 mesh over
            P = 8 shards, bf16 composite: its 15 chains' scalars and
@@ -4121,12 +4141,16 @@ def run_child_phases(record, body):
 
 
 def run_2d_suite(record):
-    """Every 2-D phase in a child process: ``start_suite("run_2d_suite")``."""
+    """Every 2-D phase, then femamg-i4-ablate (the pebble child's phases
+    outlast the 3-D window without it), in a child process:
+    ``start_suite("run_2d_suite")``."""
     def body(torch, kernels, dev, path_counts, phase_done, checked):
         run_2d_phases(torch, kernels, dev, path_counts, phase_done)
         run_2d_rest_phases(torch, kernels, dev, path_counts, phase_done)
         run_multiprocess_2d(torch, kernels, dev, path_counts)
         phase_done("multiprocess-2d")
+        run_femamg_i4_ablate(torch, kernels, dev, path_counts)
+        phase_done("femamg-i4-ablate")
 
     run_child_phases(record, body)
 
@@ -4925,6 +4949,10 @@ SCALEUP_RECORDS = {
     "32": "artifacts/scaleup_32cubed.json",
     "32-z16": "artifacts/scaleup_32cubed_fgmres-z164i4.json",
     "32-f32": "artifacts/scaleup_32cubed_fgmres-z164i4_isfcg_ptf32.json",
+    "32-c4v1": "artifacts/scaleup_32cubed_fgmres-z164i4_c4v1.json",
+    "32-isfcg": "artifacts/scaleup_32cubed_fgmres-z164i4_isfcg.json",
+    "32-z165": "artifacts/scaleup_32cubed_fgmres-z165i4.json",
+    "32-z168": "artifacts/scaleup_32cubed_fgmres-z168i4.json",
     "fgmres-z16": "artifacts/scaleup_64cubed_fgmres-z164i4.json",
     "fcg": "artifacts/scaleup_64cubed.json"}
 SCALEUP_COUNT_WINDOW = 1
@@ -4937,6 +4965,31 @@ SCALEUP_R13_RTOL = {"bf16": 0.15, "f32": 0.05}
 SCALEUP_ERR_RATIO = 2.0
 SCALEUP_LATTICE = (512, 512, 512)     # 64^3 elements at N = 7
 SCALEUP_TIMEOUT = 900
+# the 32^3 records no other phase holds, run on scaleup-32-f32's setup:
+# name -> (record key, studies/scaleup.run's arguments past m, inner_iters
+# 4 and method fgmres-z16). isfcg refines on the host, as recorded
+SCALEUP_ABLATE = {
+    "c4v1": ("32-c4v1", dict(nv=4, cheby_order=4, refine_mode="none")),
+    "isfcg": ("32-isfcg", dict(nv=4, inner_solver="fcg",
+                               refine_mode="host")),
+    "z165i4": ("32-z165", dict(nv=5, refine_mode="none")),
+    "z168i4": ("32-z168", dict(nv=8, refine_mode="none"))}
+SCALEUP_REFINE_CYCLE_WINDOW = 1
+# c4v1's witness: the same run with its composite and Z basis in f32
+# (studies/scaleup.run's method and arguments), which rounds to nothing
+# narrower than f32. Chebyshev(4) is where bf16 rounding moves the run
+# most: on the card r2-r3 read 1.3-1.7x the f32 runs', on the TPU 2.4-4.0x
+# (32^3 and 64^3); on the CPU both packages' f32 runs agree and take fewer
+# steps with Chebyshev(4) than with (2), their bf16 runs part by up to 28%
+# (PERF.md §6). So c4v1's r1-r3 are held between the witness's
+# (no faster than the method's own pace, less the bf16 window) and the
+# record's (no slower than the TPU's, plus the bf16 window)
+SCALEUP_WITNESS = {"c4v1": ("fgmres", dict(ptype="f32"))}
+SCALEUP_BRACKET = (1.0 - SCALEUP_R13_RTOL["bf16"],
+                   1.0 + SCALEUP_R13_RTOL["bf16"])
+# BASELINE.md's plateau of the inner-FCG form "near 7e-2" against r0 =
+# 415.5: the outer steps whose relative residual lies in this band
+PLATEAU_BAND = (1e-4, 2e-4)
 
 
 def _scaleup_record(key):
@@ -4959,6 +5012,13 @@ def _held_to_record(its, hist, err, ref, ptype):
                       <= SCALEUP_ERR_RATIO)}, ratios
 
 
+def plateau_steps(hist):
+    """The outer steps (r0 excluded) whose relative residual r_k / r0
+    lies within PLATEAU_BAND."""
+    lo, hi = PLATEAU_BAND
+    return sum(lo <= h / hist[0] <= hi for h in hist[1:])
+
+
 def _k12(counts):
     return (sum(counts.get("stiffness_lattice_3d", {}).values()),
             sum(counts.get("lattice_face_sum_3d", {}).values()))
@@ -4978,7 +5038,8 @@ def run_scaleup_32(torch, kernels, dev, path_counts, work):
     FCG(4)) through studies/scaleup.py, held to r0, r1-r3 within 15% and
     max|u - u*|, and the same with its Z basis in f32, held to r0, r1-r3
     within 5%, max|u - u*| and no more than its count + 1. Returns the
-    witness's setup (mesh, partition, Domain), for phase-p8-32."""
+    witness's setup (mesh, partition, Domain), for scaleup-32-ablate and
+    phase-p8-32."""
     import os
     from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import scaleup
     ref, ref_z16 = _scaleup_record("32"), _scaleup_record("32-z16")
@@ -5056,6 +5117,10 @@ def run_scaleup_32(torch, kernels, dev, path_counts, work):
                 "r1_r3_over_record": r13,
                 "history_over_record": [hist[i] / ref["residual_history"][i]
                                         for i in range(k)],
+                "plateau_band": PLATEAU_BAND,
+                "plateau_steps": plateau_steps(hist),
+                "record_plateau_steps": plateau_steps(
+                    ref["residual_history"]),
                 "ms_per_iteration": 1e3 * rec["solve_seconds"] / max(its, 1),
                 "launches": counts, "checks": checks}
         emit(line)
@@ -5063,6 +5128,122 @@ def run_scaleup_32(torch, kernels, dev, path_counts, work):
             raise AssertionError(f"scaleup-32-f32 failed its checks: "
                                  f"{checks}")
     return setup
+
+
+def run_scaleup_32_ablate(torch, kernels, dev, path_counts, setup):
+    """The four 32^3 records of artifacts/run_64cubed.py that no other
+    phase holds (SCALEUP_ABLATE), through studies/scaleup.py on
+    scaleup-32-f32's setup, each with its own bf16 composite (the study
+    builds one a run). Every run: converged, r0 within SCALEUP_R0_RTOL,
+    max|u - u*| within SCALEUP_ERR_RATIO, K1 and K2 launched, no plain
+    twin. The inner-FGMRES forms (c4v1, z165i4, z168i4): at most the
+    record's count + SCALEUP_COUNT_WINDOW and r1-r3 within the bf16
+    window; z165i4 and z168i4 are round-2 records, as scaleup-32's is, so
+    their r1-r3 are held as scaleup-32's are, to the round-3 z164i4
+    record, and printed against their own. c4v1's r1-r3 are held between
+    its witness's (the same run in f32, SCALEUP_WITNESS) and the record's
+    (SCALEUP_BRACKET). isfcg (inner FCG(4), bf16): r1-r3 within the bf16
+    window, its count printed beside the record's and not held (a bf16 Z
+    basis moves the FCG regime's count: scaleup-32-f32's witness), refined
+    on the host to the reference's 1e-7 in at most the record's cycles +
+    SCALEUP_REFINE_CYCLE_WINDOW; the plateau steps of both printed."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import scaleup
+    z164 = _scaleup_record("32-z16")
+    failed = {}
+
+    def run(name, ref, method, kw):
+        kernels.reset_counts()
+        t0 = time.time()
+        rec = scaleup.run(32, 4, method, setup=setup, **kw)
+        seconds = time.time() - t0
+        counts = kernels.counts()
+        add_counts(path_counts, counts)
+        hist, its = rec["residual_history"], rec["iterations"]
+        held, r13 = _held_to_record(its, hist, rec["max_error"], ref, "bf16")
+        checks = {"converged": rec["converged"], "r0": held["r0"],
+                  "max_error": held["max_error"],
+                  "kernels": min(_k12(counts)) > 0,
+                  "plain_calls": plain_calls(counts) == 0}
+        line = {"phase": "scaleup-32-ablate", "name": name,
+                "seconds": seconds, "record_solver": ref["solver"],
+                "solver": rec["solver"], "iterations": its,
+                "record_iterations": ref["iterations"],
+                "residuals": hist[:4],
+                "record_residuals": ref["residual_history"][:4],
+                "r1_r3_over_record": r13,
+                "max_error": rec["max_error"],
+                "record_max_error": ref["max_error"],
+                "solve_seconds": rec["solve_seconds"],
+                "ms_per_iteration": 1e3 * rec["solve_seconds"] / max(its, 1),
+                "stage_seconds": rec["stage_seconds"],
+                "card_peak_gb": rec["memory"]["card_peak_gb"],
+                "host_peak_rss_gb": rec["memory"]["host_peak_rss_gb"],
+                "k1_k2": _k12(counts), "launches": counts}
+        if kw.get("inner_solver", "fgmres") == "fgmres":
+            checks["iterations"] = (its <= ref["iterations"]
+                                    + SCALEUP_COUNT_WINDOW)
+        return rec, held, checks, line
+
+    def finish(name, checks, line):
+        line["checks"] = checks
+        emit(line)
+        if not all(checks.values()):
+            failed[name] = checks
+
+    for name, (key, kw) in SCALEUP_ABLATE.items():
+        ref = _scaleup_record(key)
+        witness = None
+        if name in SCALEUP_WITNESS:
+            method, wkw = SCALEUP_WITNESS[name]
+            witness, _, wchecks, wline = run(f"{name}-f32", ref, method,
+                                             dict(kw, **wkw))
+            finish(f"{name}-f32", wchecks, wline)
+        rec, held, checks, line = run(name, ref, "fgmres-z16", kw)
+        hist = rec["residual_history"]
+        checks["r1_r3"] = held["r1_r3"]
+        line["record_file"] = SCALEUP_RECORDS[key]
+        if witness is not None:
+            # between the card's f32 run (the method's own pace) and the
+            # TPU record (its bf16 rounding), each within the bf16 window
+            lo, hi = SCALEUP_BRACKET
+            w, r = witness["residual_history"], ref["residual_history"]
+            checks["r1_r3"] = len(hist) > 3 and len(w) > 3 and all(
+                lo * w[k] <= hist[k] <= hi * r[k] for k in (1, 2, 3))
+            line["witness_residuals"] = w[:4]
+            line["r1_r3_over_witness"] = [hist[k] / w[k] for k in (1, 2, 3)
+                                          if len(w) > 3 and len(hist) > 3]
+        if name in ("z165i4", "z168i4"):
+            # round 2, as scaleup-32's record: r1-r3 held to the round-3
+            # record of the same mesh (FGMRES(5) and (8) take FGMRES(4)'s
+            # first four steps), printed against their own beside it
+            held_z164, r13_z164 = _held_to_record(
+                rec["iterations"], hist, rec["max_error"], z164, "bf16")
+            checks["r1_r3"] = held_z164["r1_r3"]
+            line["r1_r3_over_record_z164i4"] = r13_z164
+        if kw["refine_mode"] == "host":
+            checks["refined"] = (
+                bool(rec["refined_converged"])
+                and rec["refined_rel_residual"] <= scaleup.REFINE_TOLERANCE
+                and rec["refined_cycles"] <= ref["refined_cycles"]
+                + SCALEUP_REFINE_CYCLE_WINDOW)
+            line.update(
+                history=hist, plateau_band=PLATEAU_BAND,
+                plateau_steps=plateau_steps(hist),
+                record_plateau_steps=plateau_steps(ref["residual_history"]),
+                refined=[rec["refined_rel_residual"], rec["refined_cycles"],
+                         rec["refined_inner_iterations"]],
+                record_refined=[ref["refined_rel_residual"],
+                                ref["refined_cycles"],
+                                ref["refined_inner_iterations"]],
+                refined_history=rec["refined_history"],
+                refined_max_error=rec["refined_max_error"],
+                record_refined_max_error=ref["refined_max_error"],
+                refine_seconds=rec["refine_seconds"],
+                refined_residual_seconds=rec["refined_residual_seconds"])
+        finish(name, checks, line)
+    if failed:
+        raise AssertionError(f"scaleup-32-ablate failed its checks: "
+                             f"{failed}")
 
 
 def check_scaleup_kernels(torch, kernels, dev, checked):
@@ -5215,8 +5396,8 @@ def run_scaleup_64(torch, kernels, dev, path_counts, checked):
 
 
 def run_scaleup_suite(record):
-    """scaleup-32, phase-p8-32 and scaleup-64 (with phase-64) in a child
-    process:
+    """scaleup-32, scaleup-32-ablate, phase-p8-32 and scaleup-64 (with
+    phase-64) in a child process:
     ``start_suite("run_scaleup_suite")``."""
     import shutil
     import tempfile
@@ -5226,6 +5407,8 @@ def run_scaleup_suite(record):
         try:
             problem = run_scaleup_32(torch, kernels, dev, path_counts, work)
             phase_done("scaleup-32")
+            run_scaleup_32_ablate(torch, kernels, dev, path_counts, problem)
+            phase_done("scaleup-32-ablate")
             run_phase_p8_32(torch, kernels, dev, path_counts, problem)
             del problem
             torch.cuda.empty_cache()
@@ -5563,6 +5746,13 @@ FEMAMG_I8 = ["7", "6", "1", "1", "--mesh", "kershaw", "--shape", "16,16,16",
              "--epsilon", "0.3", "--inner", "fem-amg",
              "--inner-iterations", "8", "--max-iterations", "200"]
 FEMAMG_I8_RECORD = "artifacts/femamg_production_16cubed_i8.json"
+# the fem-amg inner(4) ablation (studies/femamg_i4_ablate.py): its base is
+# the femamg phase's record; the tag whose composite runs a few outer steps
+# under the profiler (2 V-cycles of Chebyshev order 4: every route of the
+# V-cycle; a whole solve's parse took 12 s)
+FEMAMG_I4_RECORD = "artifacts/femamg_production_16cubed.json"
+FEMAMG_I4_PROFILED = "c4v2"
+FEMAMG_I4_PROFILED_STEPS = 2
 SWEEP_RECORDS = "artifacts/kershaw_sweep"
 # a record of the JAX package's driver (fem-amg i8, the sweep): count +-1,
 # r0 within 1e-5, r1-r3 within 5%, max|u - u*| within 2x
@@ -5917,6 +6107,62 @@ def _driver_checks(rec, ref):
         "max_error": (1.0 / DRIVER_ERR_RATIO <= rec["max_error"]
                       / ref["max_error"] <= DRIVER_ERR_RATIO),
         "config": all(cfg[k] == ref_cfg[k] for k in shared)}
+
+
+def run_femamg_i4_ablate(torch, kernels, dev, path_counts):
+    """studies/femamg_i4_ablate.py on the card: the fem-amg V-cycle
+    ablation at inner(4) on the main path's mesh, its four knob sets on
+    one Domain. "base" is artifacts/femamg_production_16cubed.json's
+    configuration, held as the femamg phase holds it (the count within
+    DRIVER_COUNT_WINDOW, r0 within DRIVER_R0_RTOL, the record's
+    configuration fields; r1-r3 printed); every tag converges within its 200
+    iterations; the SpMV kernel launches, and FEMAMG_I4_PROFILED_STEPS
+    outer steps of c4v2's composite under the profiler run no cuSPARSE
+    kernel."""
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import femamg_i4_ablate as fa
+    ref = _json_record(FEMAMG_I4_RECORD)
+    prof = {}
+
+    def profiled(tag, dom, solve, f, precond):
+        if tag == FEMAMG_I4_PROFILED:
+            prof.update(profile_solve(
+                torch, dom.solver(method="fgmres", precond=precond,
+                                  max_iterations=FEMAMG_I4_PROFILED_STEPS),
+                f, phase="femamg-i4-ablate-profile", top_n=8,
+                families=SPMV_KERNELS))
+
+    kernels.reset_counts()
+    t0 = time.time()
+    rec = fa.run(device=dev, after_solve=profiled)
+    seconds = time.time() - t0
+    counts = kernels.counts()
+    add_counts(path_counts, counts)
+    base = rec["base"]
+    r13, held = _driver_checks(base, ref)
+    checks = {"base_iterations": held["iterations"],
+              "base_r0": held["r0"], "base_config": held["config"],
+              "converged": all(r["converged"] and r["iterations"] <= 200
+                               for r in rec.values()),
+              "spmv": sum(counts.get("csr_spmv", {}).values()) > 0,
+              "no_cusparse": (prof.get("spmv", {}).get("count", 0) > 0
+                              and not prof.get("cusparse", {}).get("count")),
+              "plain_calls": plain_calls(counts) == 0}
+    line = {"phase": "femamg-i4-ablate", "seconds": seconds,
+            "counts": {t: r["iterations"] for t, r in rec.items()},
+            "record_base_iterations": ref["iterations"],
+            "residuals": {t: r["residual_history"][:4]
+                          for t, r in rec.items()},
+            "record_residuals": ref["residual_history"][:4],
+            "base_r1_r3_over_record": r13,
+            "max_error": {t: r["max_error"] for t, r in rec.items()},
+            "record_max_error": ref["max_error"],
+            "solve_seconds": {t: r["solve_seconds"] for t, r in rec.items()},
+            "stage_seconds": {t: r["stage_seconds"] for t, r in rec.items()},
+            "card": base["card"], "launches": counts, "checks": checks}
+    emit(line)
+    emit(prof)
+    if not all(checks.values()):
+        raise AssertionError(f"femamg-i4-ablate failed its checks: {checks}")
 
 
 def start_femamg_i8(work):

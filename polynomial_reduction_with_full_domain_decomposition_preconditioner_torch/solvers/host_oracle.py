@@ -19,7 +19,8 @@ host vector sums the processes' parts.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -149,6 +150,8 @@ class HostRefinedResult:
     inner_iterations: int
     history: list
     converged: bool
+    # host seconds of each f64 residual (one apply and one dssum)
+    residual_seconds: list = field(default_factory=list)
 
 
 def host_refine_solve(host_op: HostOperator, dom32, solve32, f64,
@@ -170,10 +173,17 @@ def host_refine_solve(host_op: HostOperator, dom32, solve32, f64,
         return HostRefinedResult(u=u, rel_residual=0.0, cycles=0,
                                  inner_iterations=0, history=[0.0],
                                  converged=True)
-    history = []
+    history, seconds = [], []
     inner_total = 0
-    for cycle in range(max_cycles):
+
+    def residual(u):
+        t0 = time.perf_counter()
         r, rn = host_op.residual(u, f64)
+        seconds.append(time.perf_counter() - t0)
+        return r, rn
+
+    for cycle in range(max_cycles):
+        r, rn = residual(u)
         rel = rn / f_norm
         history.append(rel)
         if verbose:
@@ -181,18 +191,20 @@ def host_refine_solve(host_op: HostOperator, dom32, solve32, f64,
         if rel < tolerance:
             return HostRefinedResult(u=u, rel_residual=rel, cycles=cycle,
                                      inner_iterations=inner_total,
-                                     history=history, converged=True)
+                                     history=history, converged=True,
+                                     residual_seconds=seconds)
         rd = dom32.to_device_field(global_to_owned(
             dom32, r.astype(np.float32)))
         res = solve32(rd)
         inner_total += int(res.iterations)
         corr = owned_to_global(dom32, dom32.from_device_field(res.u))
         u = u + corr
-    r, rn = host_op.residual(u, f64)
+    r, rn = residual(u)
     rel = rn / f_norm
     history.append(rel)
     if verbose:
         verbose(max_cycles, rel)
     return HostRefinedResult(u=u, rel_residual=rel, cycles=max_cycles,
                              inner_iterations=inner_total, history=history,
-                             converged=rel < tolerance)
+                             converged=rel < tolerance,
+                             residual_seconds=seconds)

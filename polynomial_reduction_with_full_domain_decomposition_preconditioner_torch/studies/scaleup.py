@@ -25,7 +25,8 @@ solver options, its progress text on standard error. This module maps
 the script's arguments to that configuration and the driver's outcome to
 the script's record: its keys, solver string and file name, and beside
 them the seconds, the card's peak and held allocation and the host's peak
-resident memory of each stage. ``build_setup`` builds the mesh, partition
+resident memory of each stage and, refined on the host, the seconds of
+each host f64 residual. ``build_setup`` builds the mesh, partition
 and Domain once, so that several ``run`` calls can share them.
 """
 
@@ -158,6 +159,8 @@ def run(m: int = 64, inner_iters: int = 3, method: str = "fcg", nv: int = 8,
             refined_converged=r["refined_converged"],
             refine_seconds=timers["solve.refine"]["total_s"],
             refined_history=list(rr.history))
+        if refine_mode == "host":
+            rec["refined_residual_seconds"] = list(rr.residual_seconds)
     # the port's additions
     rec.update(
         file=record_file(m, inner_iters, method, nv, epsilon, cheby_order,

@@ -290,6 +290,11 @@ _DRIVER = textwrap.dedent("""
         with profile_trace(os.path.join(d, "trace")):
             torch.ones(3).sum()
         assert os.path.exists(os.path.join(d, "trace", "trace.json"))
+    # the fem-amg inner(4) ablation study, one knob set at a small size
+    from polynomial_reduction_with_full_domain_decomposition_preconditioner_torch.studies import femamg_i4_ablate
+    ab = femamg_i4_ablate.run(["c4v2"], device="cpu", fields=dict(
+        shape=(2, 2, 2), poly_degree=3, poly_reduction=2))
+    assert ab["c4v2"]["converged"], ab
     assert not any(k == "jax" or k.startswith("jax.") or "_tpu" in k
                    for k, v in sys.modules.items() if v is not None)
     print("driver clean", rec["iterations"])
@@ -298,8 +303,8 @@ _DRIVER = textwrap.dedent("""
 
 def test_driver_and_cli_run_with_jax_blocked():
     # the CLI's main, the driver on a Nek export with field output and a
-    # checkpoint, the sweep and the profiler trace, neither importing jax
-    # nor the JAX package
+    # checkpoint, the sweep, the profiler trace and the fem-amg ablation
+    # study, neither importing jax nor the JAX package
     out = subprocess.run([sys.executable, "-c", _DRIVER], cwd=_REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -318,8 +323,10 @@ def test_no_jax_or_reference_imports_in_sources():
                 assert not pat.search(src), name
                 assert "import jax" not in src and "_tpu import" not in src, name
     assert len(seen) >= 20
-    # the port of artifacts/run_64cubed.py among them
+    # the ports of artifacts/run_64cubed.py and run_femamg_i4_ablate.py
+    # among them
     assert os.path.join("studies", "scaleup.py") in seen
+    assert os.path.join("studies", "femamg_i4_ablate.py") in seen
 
 
 def test_default_device_is_the_card():

@@ -33,16 +33,28 @@ SCRIPT_KEYS = {"mesh", "points", "solver", "iterations", "converged",
                "residual_history", "max_error", "solve_seconds",
                "first_solve_seconds", "setup_mesh_seconds",
                "setup_preconditioner_seconds"}
+# the records of round 2, whose solver string ends at the inner solve
+ROUND2_SOLVER = {
+    "scaleup_32cubed_fgmres-z165i4.json":
+        "fgmres-z16(5) + composite(bf16, inner GMRES(4))",
+    "scaleup_32cubed_fgmres-z168i4.json":
+        "fgmres-z16(8) + composite(bf16, inner GMRES(4))"}
 REFINED_KEYS = {"refined_rel_residual", "refined_cycles",
                 "refined_inner_iterations", "refined_max_error",
                 "refined_converged", "refine_seconds"}
-# the three recorded forms: (inner_iters, method, nv, inner_solver, ptype)
-FORMS = {"fgmres-z16 bf16": (4, "fgmres-z16", 4, "fgmres", "bf16"),
-         "fcg bf16": (4, "fcg", 8, "fgmres", "bf16"),
-         "fgmres-z16 f32 inner fcg": (4, "fgmres-z16", 4, "fcg", "f32")}
+# the recorded forms: (inner_iters, method, nv, inner_solver, ptype,
+# cheby_order, num_vcycles)
+FORMS = {"fgmres-z16 bf16": (4, "fgmres-z16", 4, "fgmres", "bf16", 2, 1),
+         "fcg bf16": (4, "fcg", 8, "fgmres", "bf16", 2, 1),
+         "fgmres-z16 f32 inner fcg": (4, "fgmres-z16", 4, "fcg", "f32", 2, 1),
+         "fgmres-z16 bf16 cheby 4": (4, "fgmres-z16", 4, "fgmres", "bf16",
+                                     4, 1),
+         "fgmres-z16 bf16 inner fcg": (4, "fgmres-z16", 4, "fcg", "bf16",
+                                       2, 1)}
 
 
-def jax_run(inner_iters, method, nv, inner_solver, ptype):
+def jax_run(inner_iters, method, nv, inner_solver, ptype, cheby_order=2,
+            num_vcycles=1):
     """artifacts/run_64cubed.py:50-102 at m = M, without its cache and file
     writes: iterations, finite residual history, max|u - u*|."""
     jb = partial(jg.kershaw_mesh, (M, M, M), epsilon=0.3)
@@ -52,7 +64,8 @@ def jax_run(inner_iters, method, nv, inner_solver, ptype):
         dom, jb, poly_reduction=6, inner="amg",
         ptype={"bf16": jnp.bfloat16, "f32": jnp.float32}[ptype],
         num_iterations=inner_iters, fine_mesh=mesh,
-        inner_solver=inner_solver, cheby_order=2, num_vcycles=1)
+        inner_solver=inner_solver, cheby_order=cheby_order,
+        num_vcycles=num_vcycles)
     u_star_dev = dom.initial_function(4, seed=0)
     f = dom.manufacture_rhs(u_star_dev)
     u_star = dom.from_device_field(u_star_dev)
@@ -80,10 +93,11 @@ def setup():
 
 @pytest.mark.parametrize("form", sorted(FORMS))
 def test_scaleup_matches_reference(form, setup):
-    inner_iters, method, nv, inner_solver, ptype = FORMS[form]
+    inner_iters, method, nv, inner_solver, ptype, cheby, nvc = FORMS[form]
     j_its, j_hist, j_err = jax_run(inner_iters, method, nv, inner_solver,
-                                   ptype)
-    rec = scaleup.run(M, inner_iters, method, nv, inner_solver=inner_solver,
+                                   ptype, cheby, nvc)
+    rec = scaleup.run(M, inner_iters, method, nv, cheby_order=cheby,
+                      num_vcycles=nvc, inner_solver=inner_solver,
                       ptype=ptype, refine_mode="none", setup=setup)
     t_hist = np.asarray(rec["residual_history"])
     assert rec["converged"] and rec["points"] == 8 * 512
@@ -108,6 +122,14 @@ def test_scaleup_matches_reference(form, setup):
      (64, 4, "fgmres-z16", 4, 0.3, 2, 1, "fgmres", "bf16"), True),
     ("scaleup_32cubed_fgmres-z164i4_isfcg_ptf32.json",
      (32, 4, "fgmres-z16", 4, 0.3, 2, 1, "fcg", "f32"), True),
+    ("scaleup_32cubed_fgmres-z164i4_c4v1.json",
+     (32, 4, "fgmres-z16", 4, 0.3, 4, 1, "fgmres", "bf16"), False),
+    ("scaleup_32cubed_fgmres-z164i4_isfcg.json",
+     (32, 4, "fgmres-z16", 4, 0.3, 2, 1, "fcg", "bf16"), True),
+    ("scaleup_32cubed_fgmres-z165i4.json",
+     (32, 4, "fgmres-z16", 5, 0.3, 2, 1, "fgmres", "bf16"), False),
+    ("scaleup_32cubed_fgmres-z168i4.json",
+     (32, 4, "fgmres-z16", 8, 0.3, 2, 1, "fgmres", "bf16"), False),
 ])
 def test_record_keys_solver_and_file_match_the_script(name, args, refined,
                                                       setup):
@@ -115,8 +137,15 @@ def test_record_keys_solver_and_file_match_the_script(name, args, refined,
         jrec = json.load(fh)
     m, inner_iters, method, nv, eps, cheby, nvc, inner_solver, ptype = args
     assert scaleup.record_file(*args) == name
-    assert scaleup.solver_name(method, nv, inner_iters, inner_solver, ptype,
-                               cheby, nvc) == jrec["solver"]
+    solver = scaleup.solver_name(method, nv, inner_iters, inner_solver,
+                                 ptype, cheby, nvc)
+    if name in ROUND2_SOLVER:
+        # a round-2 record: the script named no smoother strength then
+        # ("... inner GMRES(4))"); the port keeps today's form
+        assert jrec["solver"] == ROUND2_SOLVER[name] \
+            == solver.replace(", cheby 2, 1 vcycle)", ")")
+    else:
+        assert solver == jrec["solver"]
     assert jrec["mesh"] == f"kershaw eps={eps} {m}^3 N=7 r=6"
     want = SCRIPT_KEYS | (REFINED_KEYS if refined else set())
     assert set(jrec) - {"note"} == want
@@ -125,7 +154,7 @@ def test_record_keys_solver_and_file_match_the_script(name, args, refined,
                       else "none", setup=setup)
     assert want <= set(rec)
     assert refined or not REFINED_KEYS & set(rec)
-    assert rec["solver"] == jrec["solver"]
+    assert rec["solver"] == solver
     assert rec["mesh"] == f"kershaw eps=0.3 {M}^3 N=7 r=6"
     assert rec["file"] == name.replace(f"_{m}cubed", f"_{M}cubed")
     stages = {"mesh", "partition", "domain", "preconditioner", "rhs",
@@ -144,6 +173,11 @@ def test_host_and_device_refinement_agree(setup):
         assert rec["refined_max_error"] < 1e-5
     assert abs(recs["host"]["refined_cycles"]
                - recs["device"]["refined_cycles"]) <= 1
+    # each host f64 residual (an apply and a dssum) timed, one a cycle and
+    # the last; the device refinement has none
+    assert len(recs["host"]["refined_residual_seconds"]) == \
+        recs["host"]["refined_cycles"] + 1
+    assert "refined_residual_seconds" not in recs["device"]
     # the same f32 solves on the same Domain: the same first solve
     assert recs["host"]["residual_history"] == \
         recs["device"]["residual_history"]
